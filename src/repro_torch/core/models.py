@@ -1,0 +1,119 @@
+"""The cost model's regressors in PyTorch: the Conv1D+MaxPool+FC family.
+
+The deployed model (paper Figs 5/6): token embedding (PAD id 0 masked),
+N stacked "same" Conv1D + ReLU, MaxPool1D over every sequence position,
+the hidden FC stack, then the heads. Two head layouts, as in the
+reference:
+
+* **single-head**: ``fc[-1]`` is a ``(F, 1)`` scalar head and
+  ``conv_apply`` returns a ``(B,)`` tensor;
+* **multi-head**: ``params["heads"]`` maps each target to a ``(F, 1)``
+  linear head over the shared features and ``conv_apply`` returns
+  ``{target: (B,)}``.
+
+Layouts follow the reference at every public function: activations are
+``(B, S, C)`` and conv weights ``(fs, Cin, Cout)``. The FC, LSTM and
+transformer families are not ported yet (:func:`get_model` says so).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.params import conv_init
+
+# Canonical multi-target head set (every analyzer target, in analyzer order).
+DEFAULT_HEADS: Tuple[str, ...] = (
+    "register_pressure", "valu_utilization", "latency_us")
+
+
+def _mask(ids: torch.Tensor) -> torch.Tensor:
+    return (ids != 0).to(torch.float32)  # PAD id is 0
+
+
+def scalar_head(head_p: Dict[str, Any], feats: torch.Tensor) -> torch.Tensor:
+    """The one {"w": (F, 1), "b": (1,)} linear-readout contract."""
+    return (feats @ head_p["w"] + head_p["b"])[..., 0]
+
+
+def apply_heads(heads_p: Dict[str, Any], feats) -> Dict[str, torch.Tensor]:
+    return {t: scalar_head(h, feats) for t, h in heads_p.items()}
+
+
+def model_heads(params) -> Optional[Tuple[str, ...]]:
+    """Head names of a multi-head param tree, or None for single-head."""
+    if isinstance(params, dict) and "heads" in params:
+        return tuple(params["heads"])
+    return None
+
+
+def fc_stack(p, x: torch.Tensor) -> torch.Tensor:
+    """Hidden FC layers -> shared features. In the single-head layout the
+    last ``fc`` layer is the scalar head and is excluded here."""
+    hidden = p["fc"] if "heads" in p else p["fc"][:-1]
+    for layer in hidden:
+        x = torch.relu(x @ layer["w"] + layer["b"])
+    return x
+
+
+def fc_finish(p, x: torch.Tensor):
+    """Pooled features -> fc_stack -> head outputs, for either layout."""
+    feats = fc_stack(p, x)
+    if "heads" in p:
+        return apply_heads(p["heads"], feats)
+    return scalar_head(p["fc"][-1], feats)
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """'same'-padded 1D cross-correlation. x: (B, S, Cin); w: (fs, Cin,
+    Cout); b: (Cout,) -> (B, S, Cout).
+
+    The padding is per layer and asymmetric: ``(fs-1)//2`` zeros on the
+    left and ``fs//2`` on the right, so ``w[k]`` multiplies
+    ``x[t - (fs-1)//2 + k]`` (an even ``fs`` looks right only).
+    ``F.conv1d`` wants ``(Cout, Cin, fs)`` weights and channels-first
+    activations, hence the permutes."""
+    fs = w.shape[0]
+    xc = F.pad(x.transpose(1, 2), ((fs - 1) // 2, fs // 2))
+    out = F.conv1d(xc, w.permute(2, 1, 0))
+    return out.transpose(1, 2) + b
+
+
+def conv_encode(p, ids: torch.Tensor, *,
+                pooled_only: bool = False) -> torch.Tensor:
+    """Conv tower + MaxPool (+ hidden FC stack) -> shared features.
+
+    The max-pool covers every position, pads included: the service's
+    bucket ``pad_slack`` relies on exactly these semantics. The mask
+    follows the embedding dtype, so bf16 params run a bf16 tower."""
+    emb = p["emb"]
+    x = emb[ids] * _mask(ids).to(emb.dtype)[..., None]
+    for layer in p["convs"]:
+        x = torch.relu(conv1d(x, layer["w"], layer["b"]))
+    x = x.amax(dim=1)                            # MaxPool1D over sequence
+    return x if pooled_only else fc_stack(p, x)
+
+
+def conv_apply(p, ids: torch.Tensor, *, pooled_feats: bool = False):
+    pooled = conv_encode(p, ids, pooled_only=True)
+    out = fc_finish(p, pooled)
+    return (out, pooled) if pooled_feats else out
+
+
+MODELS = {"conv1d": (conv_init, conv_apply)}
+
+# Families of the reference that later slices port.
+NOT_PORTED = ("fc", "lstm", "xformer")
+
+
+def get_model(kind: str):
+    if kind in NOT_PORTED:
+        raise NotImplementedError(
+            f"model kind {kind!r} is not ported yet; ported: "
+            f"{sorted(MODELS)}")
+    if kind not in MODELS:
+        raise KeyError(f"unknown model {kind!r}; one of "
+                       f"{sorted(MODELS) + list(NOT_PORTED)}")
+    return MODELS[kind]

@@ -1,0 +1,98 @@
+"""Weight bridge: parameter trees between numpy and torch.
+
+A parameter tree is a plain dict with the reference layout:
+
+* ``emb`` ``(V, E)``;
+* ``convs[i]`` ``{"w": (fs, Cin, Cout), "b": (Cout,)}``;
+* ``fc[i]`` ``{"w": (Fin, Fout), "b": (Fout,)}``;
+* multi-head: ``heads[t]`` ``{"w": (F, 1), "b": (1,)}``, one per target;
+  single-head: no ``heads`` key, ``fc[-1]`` is the scalar head.
+
+Dict keys keep their names through every conversion, so a consumer maps
+head outputs by name and never by position (a tree that went through a
+key-sorting transform lists its heads in another order).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def tree_map(fn: Callable[[Any], Any], tree):
+    """Apply ``fn`` to every leaf of a dict/list/tuple tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
+    """numpy (or tensor) leaves -> torch tensors on ``device``.
+
+    ``dtype`` casts the floating leaves only (the bf16 serving cast);
+    integer leaves keep their type."""
+    def conv(a):
+        t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device).contiguous()
+    return tree_map(conv, tree)
+
+
+def to_numpy(tree):
+    """torch leaves -> numpy arrays (bf16 widens to float32: numpy has
+    no bfloat16)."""
+    def conv(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+    return tree_map(conv, tree)
+
+
+def _normal(shape, scale: float, generator: torch.Generator):
+    return torch.randn(shape, generator=generator) * scale
+
+
+def _fan_in_scale(shape) -> float:
+    fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
+    return 1.0 / float(np.sqrt(fan_in))
+
+
+def conv_init(cfg, heads: Optional[Sequence[str]] = None, *,
+              generator: torch.Generator):
+    """Conv1D+MaxPool+FC params with the reference's shapes and scales:
+    embedding N(0, 0.02); conv taps N(0, 1/(fs*Cin)); FC and head weights
+    N(0, 1/fan_in); zero biases. float32, on the CPU (the service places
+    them). The random bits differ from the reference's generator, so
+    parity tests carry the reference's params across instead."""
+    p = {"emb": _normal((cfg.vocab_size, cfg.embed_dim), 0.02, generator),
+         "convs": []}
+    c_in = cfg.embed_dim
+    for fs, c_out in zip(cfg.conv_filters, cfg.conv_channels):
+        p["convs"].append({
+            "w": _normal((fs, c_in, c_out), 1.0 / float(np.sqrt(fs * c_in)),
+                         generator),
+            "b": torch.zeros((c_out,))})
+        c_in = c_out
+    dims = [c_in, *cfg.fc_dims] + ([] if heads else [1])
+    p["fc"] = []
+    for i in range(len(dims) - 1):
+        shape = (dims[i], dims[i + 1])
+        p["fc"].append({"w": _normal(shape, _fan_in_scale(shape), generator),
+                        "b": torch.zeros((dims[i + 1],))})
+    if heads:
+        f = cfg.fc_dims[-1]
+        p["heads"] = {t: {"w": _normal((f, 1), _fan_in_scale((f, 1)),
+                                       generator),
+                          "b": torch.zeros((1,))} for t in heads}
+    return p

@@ -15,14 +15,19 @@ Phases, each printing JSON lines:
    all-PAD row, both head layouts: COSTMODEL_BASE widths at S in {32,
    256}, B in {1, 5, 64}; COSTMODEL_OPERAND's (16,16,8,8,2,1) filter mix
    at S=1024 (several sequence tiles); bf16 params; and bit-identical
-   rows for every batch size of the service's ladder up to 64. Times the
-   kernel and the plain version with CUDA events.
+   rows for every batch size of the service's ladder up to 64. Params
+   are drawn from a seed with every bias nonzero and the embedding
+   scaled so the limit is tight, and the phase checks that the plain
+   version with any group of biases zeroed misses the limit, so the
+   parity checks can fail. Times the kernel and the plain version with
+   CUDA events, and reports how far a TF32 plain version lands.
 4. ``serve``   — the port's main path: ``build_dataset`` (300 graphs),
    random COSTMODEL_BASE multi-head params from a seed, a
    ``CostModelService(use_kernel=True)`` on the card behind a
    ``CostModelServer``, 256 requests from 8 client threads (half of them
-   repeats). Checks that the kernel ran, that rows are finite and equal
-   a direct plain forward of the same ids, and that the LRU answered.
+   repeats). Checks that the kernel ran once for every batch the server
+   flushed after warm-up, that rows are finite and equal a direct plain
+   forward of the same ids, and that the LRU answered.
 
 Then one ``{"kernels": [...]}`` line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -42,6 +47,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 TOL = 2e-4              # float32 parity: accumulation order differs
 SPEARMAN_MIN = 0.99     # bf16 params vs float32 params
+# conv_init's 0.02-scale embedding leaves COSTMODEL_BASE's outputs small;
+# x100 brings them to a few tenths, where 2e-4 is tight enough that a
+# TF32 plain version misses it (the sensitivity line reports by how much)
+EMB_SCALE = 100.0
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
@@ -66,6 +75,22 @@ def ragged_ids(rng, B: int, S: int, vocab: int):
     ids[np.arange(S)[None, :] >= lens[:, None]] = 0
     ids[0] = 0
     return ids.astype(np.int32)
+
+
+def seeded_params(cfg, heads, seed: int):
+    """COSTMODEL-shaped params from a seed: conv_init's shapes and
+    scales, the embedding scaled by EMB_SCALE so the 2e-4 limit is
+    tight, and every bias drawn N(0, 0.1) where
+    conv_init leaves it 0, so a kernel that drops a bias, or pads a
+    layer's input with relu(bias), misses the limit."""
+    import torch
+    from repro_torch import params as P
+    g = torch.Generator().manual_seed(seed)
+    p = P.conv_init(cfg, heads, generator=g)
+    p["emb"] = p["emb"] * EMB_SCALE
+    for lyr in [*p["convs"], *p["fc"], *p.get("heads", {}).values()]:
+        lyr["b"] = torch.randn(lyr["b"].shape, generator=g) * 0.1
+    return p
 
 
 def spearman(a, b) -> float:
@@ -167,8 +192,7 @@ def phase_kernels() -> dict:
     max_err = 0.0
 
     def params_for(cfg, heads, dtype=None):
-        g = torch.Generator().manual_seed(1)
-        return P.from_numpy(P.conv_init(cfg, heads, generator=g), dev, dtype)
+        return P.from_numpy(seeded_params(cfg, heads, 1), dev, dtype)
 
     def compare(cfg, heads, S, B, dtype=None, label=""):
         nonlocal max_err
@@ -199,6 +223,31 @@ def phase_kernels() -> dict:
                              torch.bfloat16, label="operand_bf16"))
     for c in cases:
         emit({"phase": "kernels", **c})
+
+    # the limit can fail: zeroing any group of biases in the plain
+    # version moves it far outside 2e-4 of the kernel
+    ids = torch.from_numpy(ragged_ids(rng, 64, 256, 8192)).to(dev)
+    args, _ = ops.fused_args(params_for(COSTMODEL_BASE, DEFAULT_HEADS))
+    got = K.conv_forward_fused(ids, *args)
+    miss = {}
+    for name, idx in (("conv", (2,)), ("fc", (4,)), ("head", (6,))):
+        cut = list(args)
+        for i in idx:
+            cut[i] = [torch.zeros_like(b) for b in cut[i]] \
+                if isinstance(cut[i], list) else torch.zeros_like(cut[i])
+        miss[name] = float((REF.conv_forward_fused_ref(ids, *cut)
+                            - got).abs().max())
+        check(miss[name] > 10 * TOL, f"zeroed {name} biases only miss by "
+              f"{miss[name]}: the parity limit cannot catch it")
+    # TF32 in the plain version, against the kernel
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32 = float((REF.conv_forward_fused_ref(ids, *args) - got).abs().max())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "kernels", "case": "sensitivity",
+          "zeroed_biases_err": miss, "tf32_plain_err": tf32,
+          "out_abs_max": float(got.abs().max())})
 
     # bf16 params keep the f32 ranking of rows, per head
     ids = torch.from_numpy(ragged_ids(rng, 64, 256, 8192)).to(dev)
@@ -231,11 +280,15 @@ def phase_kernels() -> dict:
             k_ms, p_ms = time_pair(lambda: K._launch(ids, *a32),
                                    lambda: REF.conv_forward_fused_ref(
                                        ids, *a32))
-            w_ms, _ = time_pair(lambda: K.conv_forward_fused(ids, *a32),
-                                lambda: None)
+            # the wrapper as the service calls it (ids checked on the
+            # host) and with its device id check, which waits for the card
+            w_ms, wc_ms = time_pair(
+                lambda: K.conv_forward_fused(ids, *a32, check_ids=False),
+                lambda: K.conv_forward_fused(ids, *a32))
         b_ms, by, flops, nbytes = bound_ms(ids, a32)
         timings[B] = {"B": B, "S": 256, "ms": k_ms, "plain_ms": p_ms,
-                      "wrapper_ms": w_ms, "bound_ms": b_ms, "bound_by": by,
+                      "wrapper_ms": w_ms, "checked_wrapper_ms": wc_ms,
+                      "bound_ms": b_ms, "bound_by": by,
                       "flops": flops, "bytes": nbytes}
         emit({"phase": "kernels", "case": "timing", **timings[B]})
     return {"max_abs_err": max_err, "timings": timings}
@@ -258,13 +311,11 @@ def phase_serve(card: str) -> dict:
     ds = DS.build_dataset(300, mode="ops", max_seq=256, vocab_size=8192,
                           seed=0)
     _, stats = DS.normalize_targets_multi(ds.targets, DEFAULT_HEADS)
-    params = P.conv_init(COSTMODEL_BASE, DEFAULT_HEADS,
-                         generator=torch.Generator().manual_seed(0))
+    params = seeded_params(COSTMODEL_BASE, DEFAULT_HEADS, 0)
     rng = np.random.default_rng(1)
     graphs = [samplers.sample_graph(rng) for _ in range(128)]
     setup_s = time.perf_counter() - t0
 
-    K.conv_forward_fused.launches = 0               # main path from here
     svc = CostModelService("conv1d", COSTMODEL_BASE, params, ds.vocab,
                            stats, mode="ops", max_seq=256, max_batch=64,
                            use_kernel=True)
@@ -272,6 +323,7 @@ def phase_serve(card: str) -> dict:
     t1 = time.perf_counter()
     server.start(warmup=True)
     warm_s = time.perf_counter() - t1
+    K.conv_forward_fused.launches = 0       # served batches from here on
     rows, lat = {}, []
     lock = threading.Lock()
     errors = []
@@ -310,7 +362,9 @@ def phase_serve(card: str) -> dict:
     check(all(np.isfinite(v).all() for v in preds.values()),
           "denormalized predictions finite")
     check(snap["cache_hits"] > 0, f"LRU hits {snap['cache_hits']}")
-    check(launches > 0, "the kernel ran on the main path")
+    check(launches > 0 and launches == snap["batches"],
+          f"one launch per served batch: {launches} launches, "
+          f"{snap['batches']} batches")
 
     # served rows == a direct plain forward of the same ids (TF32 off)
     dev_p = P.from_numpy(params, "cuda")
@@ -367,8 +421,10 @@ def main() -> int:
         "kernel_ms": t64["ms"], "bound": "flops"
         if t64["bound_by"] == "operations" else "bytes",
         "shape": {"B": 64, "S": 256}, "wrapper_ms": t64["wrapper_ms"],
+        "checked_wrapper_ms": t64["checked_wrapper_ms"],
         "b1": {k: t1[k] for k in ("ms", "plain_ms", "wrapper_ms",
-                                  "bound_ms", "bound_by")},
+                                  "checked_wrapper_ms", "bound_ms",
+                                  "bound_by")},
         "card": dev["nvidia_smi"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": torch.cuda.device_count()}})

@@ -151,7 +151,10 @@ class CostModelService:
             kernel_kind = self.kind
 
             def apply_fn(params, ids):
-                return KOPS.forward_apply(kernel_kind, params, ids)
+                # forward_dispatch checks the id range on the host, so
+                # the launch never waits for the card to check it
+                return KOPS.forward_apply(kernel_kind, params, ids,
+                                          check_ids=False)
         else:
             _, apply_fn = CM.get_model(self.kind)
         if self.device is None:
@@ -169,6 +172,7 @@ class CostModelService:
             self.params, self._device,
             torch.bfloat16 if self.dtype == "bf16" else None)
         self._apply = lambda ids: apply_fn(params, ids)
+        self._vocab_rows = int(params["emb"].shape[0])
         self.heads = CM.model_heads(self.params) or (
             self.target or "prediction",)
         self._multi = CM.model_heads(self.params) is not None
@@ -526,12 +530,17 @@ class CostModelService:
         """Enqueue one batched forward pass on the device WITHOUT waiting
         and return an opaque ``(out, event, n)`` handle for
         :meth:`forward_collect`. The ids are copied from pinned host
-        memory without blocking and the forward launches on the current
-        stream; ``out`` holds (B, n_heads) float32 rows whose columns are
-        stacked by head name, in ``self.heads`` order. Pads the batch dim
+        memory without blocking (their range is checked on the host
+        first) and the forward launches on the current stream; ``out``
+        holds (B, n_heads) float32 rows whose columns are stacked by
+        head name, in ``self.heads`` order. Pads the batch dim
         up to the ladder with all-PAD rows (sliced off at collect), so
         only |batch_ladder| x |buckets| shapes ever run."""
         t0 = time.perf_counter()
+        if ids.size and (ids.min() < 0 or ids.max() >= self._vocab_rows):
+            raise ValueError(
+                f"token ids must lie in [0, {self._vocab_rows}), got "
+                f"[{ids.min()}, {ids.max()}]")
         n = ids.shape[0]
         nb = self._ladder_batch(n)
         if nb != n:

@@ -3,7 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (sm_90a)
 into a shared library with a plain ``extern "C"`` interface, under
 ``build/repro_torch_kernels/`` at the root of the checkout (``.gitignore``
-lists ``build/``). The file name carries a hash of the source and the
+lists ``build/``); ``$REPRO_TORCH_BUILD_DIR`` names another directory,
+and a package installed outside a checkout builds under the working
+directory's ``build/``. The file name carries a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one loads the
 library already built. A missing or failing ``nvcc`` raises with its
 output: there is no fallback.
@@ -21,8 +23,19 @@ from pathlib import Path
 from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
-    "repro_torch_kernels"
+
+
+def _build_dir() -> Path:
+    named = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if named:
+        return Path(named)
+    src = Path(__file__).resolve().parents[2]       # src/ in a checkout
+    root = src.parent if src.name == "src" and \
+        (src.parent / "pyproject.toml").is_file() else Path.cwd()
+    return root / "build" / "repro_torch_kernels"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -23,36 +23,46 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as REF
 
 LIB = "conv_forward"
-MAX_CONV_LAYERS = 8          # kMaxConv in csrc/conv_forward.cu
-MAX_FC_LAYERS = 4            # kMaxFc
-ROWS_PER_THREAD = 4          # kRows: spare buffer rows per tile
-SMEM_LIMIT = 232448          # kSmemLimit: 227 KB opt-in per block
 
 _count_lock = threading.Lock()
 _ENTRY = {torch.float32: "conv_forward_f32",
           torch.bfloat16: "conv_forward_bf16"}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
+_PLAN_ERRORS = {
+    -1: "layer counts or sizes the kernel does not take (see kMaxConv "
+        "and kMaxFc in csrc/conv_forward.cu)",
+    -2: "activations that do not fit in shared memory even at one "
+        "position per tile"}
+
+
+def _ints(xs):
+    return (ctypes.c_int * max(len(xs), 1))(*xs)
+
+
+def _plan_error(code: int, seq, embed, filter_sizes, channels,
+                fc_dims) -> ValueError:
+    return ValueError(
+        f"conv_forward_fused: {_PLAN_ERRORS[code]} (seq {seq}, embed "
+        f"{embed}, filters {tuple(filter_sizes)}, channels "
+        f"{tuple(channels)}, fc {tuple(fc_dims)})")
 
 
 def plan_tile(seq: int, embed: int, filter_sizes: Sequence[int],
               channels: Sequence[int], fc_dims: Sequence[int]) -> int:
-    """Output positions per tile: all of ``seq`` when the two ping-pong
-    activation buffers fit in shared memory, else as many as fit.
-
-    Each tile also holds a left halo of sum (fs-1)//2 and a right halo
-    of sum fs//2 positions. Raises ValueError when not even one position
-    fits (COSTMODEL_100M's 1024 channels)."""
-    ldc = max([embed, *channels])
-    halo = sum((fs - 1) // 2 for fs in filter_sizes) + \
-        sum(fs // 2 for fs in filter_sizes)
-    f_max = max([1, *fc_dims])
-    fixed = channels[-1] + 2 * f_max              # pooled + FC scratch
-    rows = (SMEM_LIMIT // 4 - fixed) // (2 * ldc)
-    tile = min(seq, rows - halo - ROWS_PER_THREAD)
+    """Output positions per tile: all of ``seq`` when the kernel's two
+    ping-pong activation buffers fit in shared memory, else as many as
+    fit. The layout and its limits live in ``csrc/conv_forward.cu``
+    (``plan``); this asks the built library. Raises ValueError when not
+    even one position fits (COSTMODEL_100M's 1024 channels) or the
+    kernel does not take these layer counts."""
+    fn = _build.load(LIB).conv_forward_plan_tile
+    fn.argtypes = [_I, _I, _I, _IP, _IP, _I, _IP]
+    fn.restype = ctypes.c_int
+    tile = fn(seq, embed, len(filter_sizes), _ints(filter_sizes),
+              _ints(channels), len(fc_dims), _ints(fc_dims))
     if tile < 1:
-        raise ValueError(
-            f"conv_forward_fused: activations of width {ldc} with a halo "
-            f"of {halo} positions do not fit in {SMEM_LIMIT} bytes of "
-            f"shared memory even at one position per tile")
+        raise _plan_error(tile, seq, embed, filter_sizes, channels, fc_dims)
     return tile
 
 
@@ -60,10 +70,9 @@ def _entry(dtype: torch.dtype):
     """The library's ctypes entry point for ``dtype`` params."""
     fn = getattr(_build.load(LIB), _ENTRY[dtype])
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-        fn.argtypes = [p, i, i, p, i, i, pp, pp, ip, ip, i, pp, pp, ip,
-                       p, p, i, i, p, p]
+        pp = ctypes.POINTER(ctypes.c_void_p)
+        fn.argtypes = [_P, _I, _I, _P, _I, _I, _I, pp, pp, _IP, _IP, _I,
+                       pp, pp, _IP, _P, _P, _I, _P, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -82,8 +91,10 @@ def _error_string(code: int) -> str:
 
 
 def _check(ids, emb, conv_weights, conv_biases, fc_weights, fc_biases,
-           head_w, head_b) -> None:
-    """Device, dtype, contiguity, shape and id-range checks."""
+           head_w, head_b, check_ids: bool) -> None:
+    """Device, dtype, contiguity and shape checks, and with ``check_ids``
+    the id range (on a CUDA tensor that reads a reduction back, so the
+    host waits for the card)."""
     if ids.dtype != torch.int32:
         raise ValueError(f"ids must be int32, got {ids.dtype}")
     if ids.dim() != 2:
@@ -92,11 +103,6 @@ def _check(ids, emb, conv_weights, conv_biases, fc_weights, fc_biases,
         raise ValueError("need one bias per conv layer and >= 1 layer")
     if len(fc_weights) != len(fc_biases):
         raise ValueError("need one bias per FC layer")
-    if len(conv_weights) > MAX_CONV_LAYERS or \
-            len(fc_weights) > MAX_FC_LAYERS:
-        raise ValueError(
-            f"the kernel holds at most {MAX_CONV_LAYERS} conv and "
-            f"{MAX_FC_LAYERS} FC layers")
     params = [emb, *conv_weights, *conv_biases, *fc_weights, *fc_biases,
               head_w, head_b]
     for t in [ids, *params]:
@@ -131,7 +137,7 @@ def _check(ids, emb, conv_weights, conv_biases, fc_weights, fc_biases,
         raise ValueError(
             f"heads {tuple(head_w.shape)} + {tuple(head_b.shape)} do not "
             f"follow width {width}")
-    if ids.numel():
+    if check_ids and ids.numel():
         lo, hi = torch.stack(torch.aminmax(ids)).tolist()
         if lo < 0 or hi >= emb.shape[0]:
             raise ValueError(
@@ -145,16 +151,22 @@ def conv_forward_fused(ids: torch.Tensor, emb: torch.Tensor,
                        fc_weights: Sequence[torch.Tensor],
                        fc_biases: Sequence[torch.Tensor],
                        head_w: torch.Tensor,
-                       head_b: torch.Tensor) -> torch.Tensor:
+                       head_b: torch.Tensor, *,
+                       check_ids: bool = True) -> torch.Tensor:
     """The fused serving forward: token ids -> (B, n_heads) float32.
 
     ids: (B, S) int32, PAD id 0; emb: (V, E); conv weights (fs, Cin,
     Cout); FC weights (Fin, Fout); head_w: (F, n_heads) with the
     per-target columns stacked. Params are all float32 or all bfloat16;
     arithmetic is float32 either way. Each launch of the kernel adds one
-    to ``conv_forward_fused.launches``."""
+    to ``conv_forward_fused.launches``.
+
+    ``check_ids=False`` skips the id-range check, which on a CUDA tensor
+    makes the host wait for the card: for a caller that has checked the
+    ids on the host (the service, before it copies them). The kernel
+    reads an id outside [0, V) as PAD; it never reads outside the table."""
     _check(ids, emb, conv_weights, conv_biases, fc_weights, fc_biases,
-           head_w, head_b)
+           head_w, head_b, check_ids)
     if ids.device.type == "cpu":
         return REF.conv_forward_fused_ref(
             ids, emb, conv_weights, conv_biases, fc_weights, fc_biases,
@@ -173,31 +185,29 @@ def _launch(ids, emb, conv_weights, conv_biases, fc_weights, fc_biases,
     fs = [int(w.shape[0]) for w in conv_weights]
     c_out = [int(w.shape[2]) for w in conv_weights]
     fc_out = [int(w.shape[1]) for w in fc_weights]
-    tile = plan_tile(S, int(emb.shape[1]), fs, c_out, fc_out)
     out = torch.empty((B, head_w.shape[1]), dtype=torch.float32,
                       device=ids.device)
-    if B == 0:
-        return out
 
     def ptrs(ts):
         return (ctypes.c_void_p * max(len(ts), 1))(
             *[t.data_ptr() for t in ts])
 
-    def ints(xs):
-        return (ctypes.c_int * max(len(xs), 1))(*xs)
-
     fn = _entry(emb.dtype)
     with torch.cuda.device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
-        rc = fn(ids.data_ptr(), B, S, emb.data_ptr(), int(emb.shape[1]),
-                len(fs), ptrs(conv_weights), ptrs(conv_biases), ints(fs),
-                ints(c_out), len(fc_out), ptrs(fc_weights), ptrs(fc_biases),
-                ints(fc_out), head_w.data_ptr(), head_b.data_ptr(),
-                int(head_w.shape[1]), tile, out.data_ptr(), stream)
+        rc = fn(ids.data_ptr(), B, S, emb.data_ptr(), int(emb.shape[0]),
+                int(emb.shape[1]), len(fs), ptrs(conv_weights),
+                ptrs(conv_biases), _ints(fs), _ints(c_out), len(fc_out),
+                ptrs(fc_weights), ptrs(fc_biases), _ints(fc_out),
+                head_w.data_ptr(), head_b.data_ptr(), int(head_w.shape[1]),
+                out.data_ptr(), stream)
+    if rc in _PLAN_ERRORS:
+        raise _plan_error(rc, S, int(emb.shape[1]), fs, c_out, fc_out)
     if rc != 0:
-        why = "unsupported sizes" if rc < 0 else _error_string(rc)
         raise RuntimeError(f"conv_forward kernel launch failed ({rc}): "
-                           f"{why}")
+                           f"{_error_string(rc)}")
+    if B == 0:
+        return out
     with _count_lock:
         conv_forward_fused.launches += 1
     return out

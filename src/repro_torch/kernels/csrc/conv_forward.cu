@@ -17,8 +17,10 @@
 // (ids, the gathered embedding rows, the params, the output) are below
 // 4.6 MB: ~1.4 us at 3.35 TB/s. The float32 kernel is bound by
 // operations. It accumulates with plain FFMA, never TF32: TF32's 10-bit
-// mantissa breaks the 2e-4 parity with the float32 reference. The bf16
-// path could later reach the tensor cores.
+// mantissa puts a plain version about 1e-3 relative off the float32
+// reference, outside the 2e-4 parity at outputs of a few tenths
+// (chip_smoke.py reports the TF32 plain version's error). The bf16 path
+// could later reach the tensor cores.
 //
 // Design (simple and right first; making it fast -- wgmma, TMA, several
 // rows per block for small B -- is later work):
@@ -31,7 +33,12 @@
 //    computes a left halo of sum (fs-1)/2 and a right halo of sum fs/2
 //    positions, which it recomputes instead of exchanging. Two ping-pong
 //    activation buffers of (T + halo + kRows) x C_max f32 live in dynamic
-//    shared memory; the wrapper picks T so that they fit in 227 KB.
+//    shared memory; plan() picks T so that they fit in 227 KB. plan() is
+//    the one place the layout and its limits are written: the wrapper
+//    asks it through conv_forward_plan_tile.
+//  * An id outside [0, V) reads as PAD, so the kernel never reads outside
+//    the table; the wrapper rejects such ids (on the host for the
+//    service's ids, by default with a device check).
 //  * "Same" padding is per layer and asymmetric: layer l pads (fs-1)/2
 //    on the left and fs/2 on the right, and w[k] multiplies
 //    x[t - (fs-1)/2 + k]. Every layer's input at a position outside
@@ -56,6 +63,7 @@ constexpr int kSmemLimit = 232448; // 227 KB a block may opt in to
 template <typename T>
 struct Net {
   const T* emb;
+  int vocab;
   int embed;
   int n_conv;
   const T* conv_w[kMaxConv];       // (fs, Cin, Cout) each
@@ -110,7 +118,9 @@ conv_forward_kernel(const int* __restrict__ ids, int S, const Net<T> net,
       const int r = i / E, e = i - r * E;
       const int p = base + r;
       const int id = (p >= 0 && p < S) ? row_ids[p] : 0;
-      buf0[r * ldc + e] = id != 0 ? ld(net.emb + (size_t)id * E + e) : 0.f;
+      buf0[r * ldc + e] = id > 0 && id < net.vocab
+                              ? ld(net.emb + (size_t)id * E + e)
+                              : 0.f;
     }
     __syncthreads();
 
@@ -196,54 +206,92 @@ conv_forward_kernel(const int* __restrict__ ids, int S, const Net<T> net,
   }
 }
 
-// Returns 0, a cudaError_t, or -1 (unsupported layer counts or sizes) /
-// -2 (the tile's buffers exceed the shared-memory limit).
+// The tile plan, the one place the shared-memory layout and the kernel's
+// limits are decided. Dynamic shared memory holds two ping-pong buffers of
+// (tile + halo_l + halo_r + kRows) x ldc floats, the pooled vector
+// (c_last) and two FC scratch vectors (f_max each). tile is all of S when
+// that fits in kSmemLimit, else as many positions as fit; 0 when not even
+// one does; -1 for layer counts or sizes the kernel does not take.
+struct Plan {
+  int tile = -1, halo_l = 0, halo_r = 0, ldc = 0, f_max = 1;
+  size_t smem = 0;
+};
+
+Plan plan(int S, int embed, int n_conv, const int* fs, const int* c_out,
+          int n_fc, const int* fc_out) {
+  Plan p;
+  if (S < 1 || embed < 1 || n_conv < 1 || n_conv > kMaxConv || n_fc < 0 ||
+      n_fc > kMaxFc)
+    return p;
+  p.ldc = embed;
+  for (int l = 0; l < n_conv; ++l) {
+    if (fs[l] < 1 || c_out[l] < 1) return p;
+    p.halo_l += (fs[l] - 1) / 2;
+    p.halo_r += fs[l] / 2;
+    if (c_out[l] > p.ldc) p.ldc = c_out[l];
+  }
+  for (int l = 0; l < n_fc; ++l) {
+    if (fc_out[l] < 1) return p;
+    if (fc_out[l] > p.f_max) p.f_max = fc_out[l];
+  }
+  const long fixed = c_out[n_conv - 1] + 2L * p.f_max;
+  const long rows = (kSmemLimit / (long)sizeof(float) - fixed) / (2L * p.ldc);
+  long tile = rows - p.halo_l - p.halo_r - kRows;
+  if (tile > S) tile = S;
+  if (tile < 1) {
+    p.tile = 0;
+    return p;
+  }
+  p.tile = (int)tile;
+  p.smem = (size_t)(2L * (tile + p.halo_l + p.halo_r + kRows) * p.ldc +
+                    fixed) * sizeof(float);
+  return p;
+}
+
+// Returns 0, a cudaError_t, -1 (unsupported layer counts or sizes) or -2
+// (not even one position per tile fits in shared memory).
 template <typename T>
-int launch(const int* ids, int B, int S, const void* emb, int embed,
-           int n_conv, const void* const* conv_w, const void* const* conv_b,
-           const int* fs, const int* c_out, int n_fc,
-           const void* const* fc_w, const void* const* fc_b,
+int launch(const int* ids, int B, int S, const void* emb, int vocab,
+           int embed, int n_conv, const void* const* conv_w,
+           const void* const* conv_b, const int* fs, const int* c_out,
+           int n_fc, const void* const* fc_w, const void* const* fc_b,
            const int* fc_out, const void* head_w, const void* head_b,
-           int n_heads, int tile, float* out, void* stream) {
-  if (n_conv < 1 || n_conv > kMaxConv || n_fc < 0 || n_fc > kMaxFc ||
-      tile < 1 || S < 1 || B < 0 || n_heads < 1)
-    return -1;
+           int n_heads, float* out, void* stream) {
+  const Plan p = plan(S, embed, n_conv, fs, c_out, n_fc, fc_out);
+  if (p.tile < 0 || B < 0 || n_heads < 1 || vocab < 1) return -1;
+  if (p.tile == 0) return -2;
   Net<T> net = {};
   net.emb = static_cast<const T*>(emb);
+  net.vocab = vocab;
   net.embed = embed;
   net.n_conv = n_conv;
-  net.ldc = embed;
   for (int l = 0; l < n_conv; ++l) {
     net.conv_w[l] = static_cast<const T*>(conv_w[l]);
     net.conv_b[l] = static_cast<const T*>(conv_b[l]);
     net.fs[l] = fs[l];
     net.c_out[l] = c_out[l];
-    net.halo_l += (fs[l] - 1) / 2;
-    net.halo_r += fs[l] / 2;
-    if (c_out[l] > net.ldc) net.ldc = c_out[l];
   }
   net.n_fc = n_fc;
-  net.f_max = 1;
   for (int l = 0; l < n_fc; ++l) {
     net.fc_w[l] = static_cast<const T*>(fc_w[l]);
     net.fc_b[l] = static_cast<const T*>(fc_b[l]);
     net.fc_out[l] = fc_out[l];
-    if (fc_out[l] > net.f_max) net.f_max = fc_out[l];
   }
   net.head_w = static_cast<const T*>(head_w);
   net.head_b = static_cast<const T*>(head_b);
   net.n_heads = n_heads;
-  net.tile = tile;
-  const long rows = (long)tile + net.halo_l + net.halo_r + kRows;
-  const long smem = (2 * rows * net.ldc + c_out[n_conv - 1] +
-                     2L * net.f_max) * (long)sizeof(float);
-  if (smem > kSmemLimit) return -2;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv_forward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemLimit);
-  if (attr != cudaSuccess) return (int)attr;
+  net.ldc = p.ldc;
+  net.f_max = p.f_max;
+  net.halo_l = p.halo_l;
+  net.halo_r = p.halo_r;
+  net.tile = p.tile;
   if (B == 0) return 0;
-  conv_forward_kernel<T><<<B, kThreads, (size_t)smem,
+  // the opt-in is per device, so it is set on every launch (it is cheap)
+  const cudaError_t attr = cudaFuncSetAttribute(
+      conv_forward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)p.smem);
+  if (attr != cudaSuccess) return (int)attr;
+  conv_forward_kernel<T><<<B, kThreads, p.smem,
                            static_cast<cudaStream_t>(stream)>>>(
       ids, S, net, out);
   return (int)cudaGetLastError();
@@ -251,16 +299,16 @@ int launch(const int* ids, int B, int S, const void* emb, int embed,
 
 }  // namespace
 
-#define CONV_FORWARD_ARGS                                                   \
-  const int *ids, int B, int S, const void *emb, int embed, int n_conv,    \
-      const void *const *conv_w, const void *const *conv_b, const int *fs, \
-      const int *c_out, int n_fc, const void *const *fc_w,                 \
-      const void *const *fc_b, const int *fc_out, const void *head_w,      \
-      const void *head_b, int n_heads, int tile, float *out, void *stream
+#define CONV_FORWARD_ARGS                                                  \
+  const int *ids, int B, int S, const void *emb, int vocab, int embed,    \
+      int n_conv, const void *const *conv_w, const void *const *conv_b,   \
+      const int *fs, const int *c_out, int n_fc, const void *const *fc_w, \
+      const void *const *fc_b, const int *fc_out, const void *head_w,     \
+      const void *head_b, int n_heads, float *out, void *stream
 
-#define CONV_FORWARD_PASS                                                   \
-  ids, B, S, emb, embed, n_conv, conv_w, conv_b, fs, c_out, n_fc, fc_w,     \
-      fc_b, fc_out, head_w, head_b, n_heads, tile, out, stream
+#define CONV_FORWARD_PASS                                                  \
+  ids, B, S, emb, vocab, embed, n_conv, conv_w, conv_b, fs, c_out, n_fc,   \
+      fc_w, fc_b, fc_out, head_w, head_b, n_heads, out, stream
 
 extern "C" int conv_forward_f32(CONV_FORWARD_ARGS) {
   return launch<float>(CONV_FORWARD_PASS);
@@ -268,6 +316,15 @@ extern "C" int conv_forward_f32(CONV_FORWARD_ARGS) {
 
 extern "C" int conv_forward_bf16(CONV_FORWARD_ARGS) {
   return launch<__nv_bfloat16>(CONV_FORWARD_PASS);
+}
+
+// Output positions per tile for these sizes (see plan()), or launch()'s
+// codes: -1 for unsupported sizes, -2 when not even one position fits.
+extern "C" int conv_forward_plan_tile(int S, int embed, int n_conv,
+                                      const int* fs, const int* c_out,
+                                      int n_fc, const int* fc_out) {
+  const int tile = plan(S, embed, n_conv, fs, c_out, n_fc, fc_out).tile;
+  return tile == 0 ? -2 : tile;
 }
 
 extern "C" const char* conv_forward_error_string(int code) {

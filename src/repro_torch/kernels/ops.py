@@ -49,27 +49,30 @@ def fused_args(params):
             head_w, head_b), names
 
 
-def conv_forward_apply(params, ids: torch.Tensor):
+def conv_forward_apply(params, ids: torch.Tensor, *,
+                       check_ids: bool = True):
     """Full fused serving forward for kind="conv1d": ids -> predictions.
 
     Output matches ``conv_apply``: a ``{target: (B,)}`` dict for the
     multi-head layout, a ``(B,)`` tensor for single-head, but always
-    float32 (the kernel accumulates f32 even for bf16 params)."""
+    float32 (the kernel accumulates f32 even for bf16 params).
+    ``check_ids`` as in :func:`conv_forward_fused`."""
     args, names = fused_args(params)
-    out = conv_forward_fused(ids, *args)
+    out = conv_forward_fused(ids, *args, check_ids=check_ids)
     if names is None:
         return out[:, 0]
     return {t: out[:, i] for i, t in enumerate(names)}
 
 
-def forward_apply(kind: str, params, ids: torch.Tensor):
+def forward_apply(kind: str, params, ids: torch.Tensor, *,
+                  check_ids: bool = True):
     """Dispatch to the fused forward for ``kind``.
 
     Raises ValueError for kinds without a kernel (see KERNEL_KINDS) and
     NotImplementedError for the LSTM, whose recurrence kernel is not
     ported yet."""
     if kind == "conv1d":
-        return conv_forward_apply(params, ids)
+        return conv_forward_apply(params, ids, check_ids=check_ids)
     if kind == "lstm":
         raise NotImplementedError(
             "the fused LSTM forward (lstm_scan_fused) is not ported yet")

@@ -3,8 +3,8 @@
 On the card, run them as float32 yardsticks with TF32 off
 (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` both False): cuDNN runs
-float32 convolutions in TF32 by default, whose 10-bit mantissa is far
-outside the kernels' 2e-4 parity.
+float32 convolutions in TF32 by default, whose 10-bit mantissa puts
+outputs of a few tenths outside the kernels' 2e-4 parity.
 """
 from __future__ import annotations
 

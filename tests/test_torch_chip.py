@@ -49,11 +49,21 @@ def ragged_ids(rng, B, S, vocab):
     return ids.astype(np.int32)
 
 
+def seeded_params(cfg, heads, seed):
+    """Seeded params with the embedding scaled x100 (outputs reach a few
+    tenths at COSTMODEL_BASE widths) and every bias drawn nonzero
+    (conv_init zeroes them), so a kernel that drops a bias or pads with
+    relu(bias) fails the 2e-4 limit."""
+    g = torch.Generator().manual_seed(seed)
+    p = P.conv_init(cfg, heads, generator=g)
+    p["emb"] = p["emb"] * 100.0
+    for lyr in [*p["convs"], *p["fc"], *p.get("heads", {}).values()]:
+        lyr["b"] = torch.randn(lyr["b"].shape, generator=g) * 0.1
+    return p
+
+
 def card_params(cfg, heads, device, dtype=None, seed=0):
-    """Seeded params, embedding scaled so outputs are O(1)."""
-    p = P.conv_init(cfg, heads, generator=torch.Generator().manual_seed(seed))
-    p["emb"] = p["emb"] * 20.0
-    return P.from_numpy(p, device, dtype)
+    return P.from_numpy(seeded_params(cfg, heads, seed), device, dtype)
 
 
 def _columns(out, heads):
@@ -103,6 +113,50 @@ def test_out_of_range_id_raises_on_card(cuda):
         ops.conv_forward_apply(pt, ids)
 
 
+@pytest.mark.parametrize("bad", [-1, 8192, 1 << 30])
+def test_unchecked_out_of_range_id_reads_as_pad(cuda, bad):
+    """check_ids=False (the service checks on the host): the kernel
+    reads an id outside the table as PAD and never outside the table."""
+    cfg = CFGS.COSTMODEL_BASE
+    pt = card_params(cfg, DEFAULT_HEADS, cuda)
+    ids = torch.from_numpy(ragged_ids(np.random.default_rng(5), 3, 32,
+                                      cfg.vocab_size)).to(cuda)
+    want = ops.conv_forward_apply(pt, ids)
+    ids[1, 0], ids[2, 31] = bad, bad
+    pad = ids.clone()
+    pad[1, 0], pad[2, 31] = 0, 0
+    got = ops.conv_forward_apply(pt, ids, check_ids=False)
+    torch.cuda.synchronize()
+    for t in DEFAULT_HEADS:
+        assert torch.equal(got[t], ops.conv_forward_apply(pt, pad)[t]), t
+    assert torch.equal(got[DEFAULT_HEADS[0]][0], want[DEFAULT_HEADS[0]][0])
+
+
+def test_plan_tile(cuda):
+    """The tile plan of csrc/conv_forward.cu: one tile for a whole
+    COSTMODEL_BASE row, several with halos for the operand mix at
+    S=1024, a ValueError at COSTMODEL_100M's 1024 channels."""
+    base, op = CFGS.COSTMODEL_BASE, CFGS.COSTMODEL_OPERAND
+    assert K.plan_tile(256, base.embed_dim, base.conv_filters,
+                       base.conv_channels, base.fc_dims) == 256
+    tile = K.plan_tile(1024, op.embed_dim, op.conv_filters,
+                       op.conv_channels, op.fc_dims)
+    assert 1 <= tile < 1024
+    big = CFGS.COSTMODEL_100M
+    with pytest.raises(ValueError, match="shared memory"):
+        K.plan_tile(1024, big.embed_dim, big.conv_filters,
+                    big.conv_channels, big.fc_dims)
+
+
+def test_wrapper_rejects_too_many_layers_on_card(cuda):
+    pt = card_params(CFGS.COSTMODEL_SMALL, DEFAULT_HEADS, cuda)
+    args = list(ops.fused_args(pt)[0])
+    args[1], args[2] = args[1] * 2, args[2] * 2
+    ids = torch.ones((2, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="kMaxConv"):
+        K.conv_forward_fused(ids, *args)
+
+
 @pytest.fixture
 def corpus():
     rng = np.random.default_rng(3)
@@ -114,9 +168,7 @@ def corpus():
 
 def _service(vocab, device, **kw):
     cfg = CFGS.COSTMODEL_BASE
-    params = P.conv_init(cfg, DEFAULT_HEADS,
-                         generator=torch.Generator().manual_seed(4))
-    params["emb"] = params["emb"] * 20.0
+    params = seeded_params(cfg, DEFAULT_HEADS, seed=4)
     stats = {t: {"mu": 0.3, "sigma": 1.7} for t in DEFAULT_HEADS}
     kw.setdefault("max_batch", 16)
     return CostModelService("conv1d", cfg, params, vocab, stats,

@@ -1,8 +1,10 @@
 """The fused conv forward of the port: its wrapper's plain path on the
 CPU against the reference kernel (Pallas, interpret mode) and the
-reference oracle; the wrapper's checks; the tile planner; the build's
-failure mode. The CUDA kernel itself is tested on the card by
-tests/test_torch_chip.py, which needs no JAX."""
+reference oracle; the wrapper's checks; the build's failure mode and
+directory. The CUDA kernel and its tile planner are tested on the card
+by tests/test_torch_chip.py, which needs no JAX."""
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,12 +43,17 @@ def ragged_ids(rng, B, S, vocab):
     return ids.astype(np.int32)
 
 
-def ref_params(cfg, heads, seed=1, emb_scale=20.0):
+def ref_params(cfg, heads, seed=1, emb_scale=20.0, bias_std=0.1):
     """Reference params (numpy), embedding scaled so outputs are O(1)
-    and the absolute tolerance is a tight bound."""
+    and the absolute tolerance is a tight bound, and every bias drawn
+    nonzero (conv_init zeroes them) so a dropped bias shows."""
     p = jax.tree.map(np.asarray, RM.conv_init(jax.random.PRNGKey(seed),
                                               cfg, heads=heads))
     p["emb"] = p["emb"] * np.float32(emb_scale)
+    rng = np.random.default_rng(seed)
+    for lyr in [*p["convs"], *p["fc"], *p.get("heads", {}).values()]:
+        lyr["b"] = (rng.normal(size=lyr["b"].shape) * bias_std).astype(
+            np.float32)
     return p
 
 
@@ -109,7 +116,7 @@ def _ids(B=3, S=16):
 
 @pytest.mark.parametrize("case", ["int64", "too_big", "negative",
                                   "noncontig", "mixed_dtype", "bad_chain",
-                                  "one_dim", "too_many_layers"])
+                                  "one_dim", "bad_heads"])
 def test_wrapper_rejects_bad_input(case):
     ids, args = _ids(), _args()
     V = args[0].shape[0]
@@ -128,8 +135,8 @@ def test_wrapper_rejects_bad_input(case):
                                   for w in args[1][1:]]
     elif case == "one_dim":
         ids = ids[0]
-    elif case == "too_many_layers":
-        args[1], args[2] = args[1] * 2, args[2] * 2
+    elif case == "bad_heads":
+        args[6] = torch.cat([args[6], args[6]], 0)
     with pytest.raises(ValueError):
         K.conv_forward_fused(ids, *args)
 
@@ -141,17 +148,16 @@ def test_wrapper_plain_path_on_cpu_counts_no_launch():
     assert K.conv_forward_fused.launches == before
 
 
-def test_plan_tile():
-    base, op = T_CFG.COSTMODEL_BASE, T_CFG.COSTMODEL_OPERAND
-    assert K.plan_tile(256, base.embed_dim, base.conv_filters,
-                       base.conv_channels, base.fc_dims) == 256
-    tile = K.plan_tile(1024, op.embed_dim, op.conv_filters,
-                       op.conv_channels, op.fc_dims)
-    assert 1 <= tile < 1024          # several tiles with halos
-    big = T_CFG.COSTMODEL_100M
-    with pytest.raises(ValueError, match="shared memory"):
-        K.plan_tile(1024, big.embed_dim, big.conv_filters,
-                    big.conv_channels, big.fc_dims)
+def test_wrapper_check_ids_false_skips_the_range_check():
+    """check_ids=False (the service's path: it checks on the host) does
+    not run the wrapper's range check; the plain version then indexes
+    the table itself and rejects the id in its own way."""
+    ids, args = _ids(), _args()
+    ids[1, 0] = args[0].shape[0]
+    with pytest.raises(ValueError, match="token ids"):
+        K.conv_forward_fused(ids, *args)
+    with pytest.raises(IndexError):
+        K.conv_forward_fused(ids, *args, check_ids=False)
 
 
 def test_kernel_kinds_and_dispatch():
@@ -180,3 +186,13 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.load("conv_forward")
     key = _build.library_path("conv_forward")
     assert key.parent == tmp_path / "build" and key.suffix == ".so"
+
+
+def test_build_dir_is_the_checkout_or_named(monkeypatch, tmp_path):
+    """Libraries build under the checkout's build/ (where src/ sits next
+    to pyproject.toml), or where $REPRO_TORCH_BUILD_DIR says."""
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    root = Path(_build.__file__).resolve().parents[3]
+    assert _build._build_dir() == root / "build" / "repro_torch_kernels"
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    assert _build._build_dir() == tmp_path

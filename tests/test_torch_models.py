@@ -34,12 +34,18 @@ def ragged_ids(rng, B, S, vocab, all_pad_row=True):
     return ids.astype(np.int32)
 
 
-def ref_params(cfg, heads, seed=1, emb_scale=1.0):
+def ref_params(cfg, heads, seed=1, emb_scale=1.0, bias_std=0.1):
     """Reference params as numpy (keys sorted, as jax.tree.map leaves
-    them), with the embedding optionally scaled so outputs are O(1)."""
+    them), with the embedding optionally scaled so outputs are O(1) and
+    every bias drawn nonzero (conv_init zeroes them) so a dropped bias
+    or a nonzero pad shows."""
     p = jax.tree.map(np.asarray, RM.conv_init(jax.random.PRNGKey(seed),
                                               cfg, heads=heads))
     p["emb"] = p["emb"] * np.float32(emb_scale)
+    rng = np.random.default_rng(seed)
+    for lyr in [*p["convs"], *p["fc"], *p.get("heads", {}).values()]:
+        lyr["b"] = (rng.normal(size=lyr["b"].shape) * bias_std).astype(
+            np.float32)
     return p
 
 

@@ -31,8 +31,8 @@ TOL = 2e-4     # float32, another accumulation order than XLA's
 @pytest.fixture(scope="module")
 def world():
     """Identical graphs from both samplers, one vocab, reference params
-    (embedding scaled so predictions spread), and the reference
-    service's f32 predictions."""
+    (embedding scaled so predictions spread, biases nonzero), and the
+    reference service's f32 predictions."""
     r_rng, t_rng = np.random.default_rng(7), np.random.default_rng(7)
     r_graphs = [R_SMP.sample_graph(r_rng) for _ in range(40)]
     t_graphs = [T_SMP.sample_graph(t_rng) for _ in range(40)]
@@ -43,6 +43,10 @@ def world():
     assert t_vocab.token_to_id == vocab.token_to_id
     params = RM.conv_init(jax.random.PRNGKey(0), CFG, heads=RM.DEFAULT_HEADS)
     params["emb"] = params["emb"] * 20.0
+    b_rng = np.random.default_rng(0)          # conv_init zeroes biases
+    for lyr in [*params["convs"], *params["fc"], *params["heads"].values()]:
+        lyr["b"] = (b_rng.normal(size=lyr["b"].shape) * 0.1).astype(
+            np.float32)
     stats = {t: {"mu": 0.3, "sigma": 1.7} for t in RM.DEFAULT_HEADS}
     ref = R_SVC.CostModelService("conv1d", CFG, params, vocab, stats,
                                  mode="ops", max_seq=64, max_batch=8)
@@ -142,6 +146,17 @@ def test_guards(world):
         world["make"](dtype="fp8")
     with pytest.raises(ValueError, match="multi-target"):
         svc.predict_graphs(world["graphs"][:1])
+
+
+@pytest.mark.parametrize("bad", [-1, CFG.vocab_size])
+def test_dispatch_checks_id_range_on_host(world, bad):
+    """forward_dispatch rejects ids outside the table before it copies
+    them, so the kernel's launch needs no device check."""
+    svc = world["make"](use_kernel=True)
+    ids = np.zeros((2, 16), np.int32)
+    ids[1, 3] = bad
+    with pytest.raises(ValueError, match="token ids"):
+        svc.forward_dispatch(ids)
 
 
 def test_warmup_runs_every_shape(world):

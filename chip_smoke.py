@@ -8,10 +8,12 @@ Phases, each printing JSON lines:
 1. ``device``  — the card's name, and its name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    prints them (that raw line is printed too).
-2. ``build``   — builds the CUDA kernel library from ``src/repro_torch/
-   kernels/csrc`` and reports the seconds it took.
-3. ``kernels`` — holds the fused conv forward kernel against its plain
-   PyTorch version on the card (TF32 off), with ragged ids and one
+2. ``build``   — builds the three CUDA kernel libraries from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all started
+   together) and reports each one's seconds and ptxas register and spill
+   lines.
+3. ``kernels`` — holds the fused conv forward kernel (K1) against its
+   plain PyTorch version on the card (TF32 off), with ragged ids and one
    all-PAD row, both head layouts: COSTMODEL_BASE widths at S in {32,
    256}, B in {1, 5, 64}; COSTMODEL_OPERAND's (16,16,8,8,2,1) filter mix
    at S=1024 (several sequence tiles); bf16 params; and bit-identical
@@ -21,13 +23,33 @@ Phases, each printing JSON lines:
    version with any group of biases zeroed misses the limit, so the
    parity checks can fail. Times the kernel and the plain version with
    CUDA events, and reports how far a TF32 plain version lands.
-4. ``serve``   — the port's main path: ``build_dataset`` (300 graphs),
+4. ``serve``   — the Conv1D main path: ``build_dataset`` (300 graphs),
    random COSTMODEL_BASE multi-head params from a seed, a
    ``CostModelService(use_kernel=True)`` on the card behind a
    ``CostModelServer``, 256 requests from 8 client threads (half of them
    repeats). Checks that the kernel ran once for every batch the server
-   flushed after warm-up, that rows are finite and equal a direct plain
-   forward of the same ids, and that the LRU answered.
+   flushed after warm-up, that rows are finite, equal a direct plain
+   forward of the same ids and a direct ``predict_all`` bit for bit, and
+   that the LRU answered.
+5. ``kernels_lstm`` — the LSTM recurrence kernel (K2) against its plain
+   version: the reference's test shapes, COSTMODEL_BASE (H=128) at S in
+   {32, 256}, B in {1, 5, 64}, f32 and bf16, ragged masks, one all-PAD
+   row that must come out exactly 0; plain versions with the forget-gate
+   +1 dropped, the gate bias zeroed or the mask ignored must miss by more
+   than 10x the limit; bf16 vs f32 params keep each head's ranking; rows
+   bit-identical across the ladder, for the kernel and for
+   ``lstm_forward_apply`` with its projection. Times the kernel, its
+   plain version, and cuDNN's LSTM (``torch.nn.LSTM`` on packed prefix
+   sequences, the yardstick ``library_ms``) against the projection plus
+   the kernel.
+6. ``serve_lstm`` — the LSTM main path: the serve phase's dataset,
+   requests and checks with ``CostModelService("lstm", use_kernel=True)``.
+7. ``tower``   — the tower kernel (K3, masked max-pool) against
+   ``conv1d_stack_ref(mask)``, and ``conv_tower_apply(use_kernel=True)``
+   against the plain tower path: COSTMODEL_BASE and COSTMODEL_OPERAND
+   widths, the reference tests' filter mixes, f32 and bf16, all-masked
+   rows, the ladder; an unmasked pool must miss by more than 10x the
+   limit. Its launches are counted over one ``conv_tower_apply`` run.
 
 Then one ``{"kernels": [...]}`` line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -36,6 +58,7 @@ a CUDA card, or a directory without the repository's ``src/``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -46,16 +69,30 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 TOL = 2e-4              # float32 parity: accumulation order differs
+# the LSTM kernel at the reference's own test shapes: the reference
+# holds its kernel to 1e-5 there (tests/test_kernels.py)
+TOL_LSTM_SMALL = 1e-5
+# a bf16 output is the f32 result rounded to nearest: within 2^-8
+# relative of it, so 2^-7 of the f32 plain result, plus float32's own
+# accumulation-order noise
+BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5
 SPEARMAN_MIN = 0.99     # bf16 params vs float32 params
 # conv_init's 0.02-scale embedding leaves COSTMODEL_BASE's outputs small;
 # x100 brings them to a few tenths, where 2e-4 is tight enough that a
 # TF32 plain version misses it (the sensitivity line reports by how much)
 EMB_SCALE = 100.0
+# lstm_init's embedding x50 gives input gates of about unit size
+LSTM_EMB_SCALE = 50.0
+LADDER = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/conv_forward.cu"
 TPU_KERNEL = "src/repro/kernels/conv1d_stack.py:171"
+LSTM_SOURCE = "src/repro_torch/kernels/csrc/lstm_scan.cu"
+LSTM_TPU_KERNEL = "src/repro/kernels/lstm_scan.py:62"
+TOWER_SOURCE = "src/repro_torch/kernels/csrc/conv_tower.cu"
+TOWER_TPU_KERNEL = "src/repro/kernels/conv1d_stack.py:98"
 
 
 def emit(obj) -> None:
@@ -91,6 +128,39 @@ def seeded_params(cfg, heads, seed: int):
     for lyr in [*p["convs"], *p["fc"], *p.get("heads", {}).values()]:
         lyr["b"] = torch.randn(lyr["b"].shape, generator=g) * 0.1
     return p
+
+
+def seeded_lstm_params(cfg, heads, seed: int):
+    """lstm_init's shapes and scales from a seed, the embedding scaled by
+    LSTM_EMB_SCALE, and the gate bias and the head biases drawn
+    N(0, 0.1) where lstm_init leaves them 0."""
+    import torch
+    from repro_torch import params as P
+    g = torch.Generator().manual_seed(seed)
+    p = P.lstm_init(cfg, heads, generator=g)
+    p["emb"] = p["emb"] * LSTM_EMB_SCALE
+    p["b"] = torch.randn(p["b"].shape, generator=g) * 0.1
+    for lyr in [*p.get("heads", {}).values(), *([p["head"]] if "head" in p
+                                                else [])]:
+        lyr["b"] = torch.randn(lyr["b"].shape, generator=g) * 0.1
+    return p
+
+
+def mixed_ids(rng, B: int, S: int, vocab: int):
+    """ragged_ids, except that a single row is a real one (a batch of
+    one all-PAD row checks nothing)."""
+    return ragged_ids(rng, B, S, vocab) if B > 1 else \
+        long_ids(rng, 1, S, vocab)
+
+
+def long_ids(rng, B: int, S: int, vocab: int):
+    """Ids whose valid prefixes fill more than half of S, as the rows of
+    the service's S bucket do; no all-PAD row."""
+    import numpy as np
+    ids = rng.integers(1, vocab, (B, S))
+    lens = rng.integers(S // 2 + 1, S + 1, (B,))
+    ids[np.arange(S)[None, :] >= lens[:, None]] = 0
+    return ids.astype(np.int32)
 
 
 def spearman(a, b) -> float:
@@ -166,13 +236,11 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels import _build, conv1d_stack
-    t0 = time.perf_counter()
-    conv1d_stack.build()
-    secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             _build.build_log(conv1d_stack.LIB).splitlines()
-             if "registers" in ln or "spill" in ln]
+    from repro_torch.kernels import _build, conv1d_stack, lstm_scan
+    libs = [conv1d_stack.LIB, lstm_scan.LIB, conv1d_stack.TOWER_LIB]
+    secs = _build.build_all(libs)
+    ptxas = {lib: [ln.strip() for ln in _build.build_log(lib).splitlines()
+                   if "registers" in ln or "spill" in ln] for lib in libs}
     emit({"phase": "build", "seconds": secs, "ptxas": ptxas})
 
 
@@ -294,36 +362,382 @@ def phase_kernels() -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
-def phase_serve(card: str) -> dict:
+def lstm_bound_ms(xw, mask, wh) -> tuple:
+    """Least time the card could take for one recurrence on these inputs:
+    operations and bytes of the valid steps only (a masked step does no
+    work and reads no xw), plus the mask, wh and the output."""
+    steps = float(mask.sum())
+    H = wh.shape[0]
+    flops = steps * 2 * H * 4 * H
+    nbytes = steps * 4 * H * xw.element_size() + mask.numel() * 4 \
+        + wh.numel() * wh.element_size() + xw.shape[0] * H * 4
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def phase_kernels_lstm() -> dict:
     import numpy as np
     import torch
     from repro_torch import params as P
     from repro_torch.configs.costmodel import COSTMODEL_BASE
-    from repro_torch.core.models import DEFAULT_HEADS
-    from repro_torch.core.server import CostModelServer
-    from repro_torch.core.service import CostModelService
-    from repro_torch.ir import dataset as DS
-    from repro_torch.ir import samplers
-    from repro_torch.kernels import conv1d_stack as K
+    from repro_torch.core import models as CM
+    from repro_torch.kernels import lstm_scan as K2
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ref as REF
 
-    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    cfg = COSTMODEL_BASE
+    heads = CM.DEFAULT_HEADS
+    max_err = 0.0
+
+    def params_for(dtype=None, hs=heads):
+        return P.from_numpy(seeded_lstm_params(cfg, hs, 1), dev, dtype)
+
+    def project(p, ids):
+        return p["emb"][ids] @ p["wx"] + p["b"], (ids != 0).float()
+
+    def compare(xw, mask, wh, limit, label, **info):
+        nonlocal max_err
+        got = K2.lstm_scan_fused(xw, mask, wh)
+        want = REF.lstm_scan_ref(xw, mask, wh)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.isfinite(got).all().item(), f"{label} finite")
+        check(err <= limit, f"{label} {info} err {err} > {limit}")
+        pad = mask.sum(1) == 0
+        check(bool(pad.any()) == (xw.shape[0] > 1) and
+              bool((got[pad] == 0).all()),
+              f"{label} {info}: the all-PAD row is exactly 0")
+        max_err = max(max_err, err)
+        emit({"phase": "kernels_lstm", "case": label, **info,
+              "max_abs_err": err, "limit": limit})
+
+    # the reference's test shapes and inputs: random masks, row 0 masked
+    # (but for B=1)
+    for B, S, H in ((1, 16, 8), (5, 32, 16), (8, 64, 16)):
+        xw = rng.normal(size=(B, S, 4 * H)) * 0.5
+        m = (rng.random((B, S)) < 0.8).astype(np.float32)
+        if B > 1:
+            m[0] = 0
+        wh = rng.normal(size=(H, 4 * H)) * 0.3
+        mask = torch.from_numpy(m).to(dev)
+        for dt, limit in ((torch.float32, TOL_LSTM_SMALL),
+                          (torch.bfloat16, TOL)):
+            compare(torch.tensor(xw, dtype=dt, device=dev), mask,
+                    torch.tensor(wh, dtype=dt, device=dev), limit,
+                    "reference_shape", B=B, S=S, H=H, dtype=str(dt))
+    # COSTMODEL_BASE through its projection: ragged prefix masks
+    for dt in (torch.float32, torch.bfloat16):
+        p = params_for(dt)
+        for S in (32, 256):
+            for B in (1, 5, 64):
+                ids = torch.from_numpy(mixed_ids(rng, B, S,
+                                                 cfg.vocab_size)).to(dev)
+                xw, mask = project(p, ids)
+                compare(xw, mask, p["wh"], TOL, "base", B=B, S=S,
+                        H=cfg.lstm_hidden, dtype=str(dt))
+    # the slice as a whole, both head layouts: lstm_forward_apply against
+    # the plain model
+    for hs in (heads, None):
+        p = params_for(hs=hs)
+        ids = torch.from_numpy(ragged_ids(rng, 64, 256,
+                                          cfg.vocab_size)).to(dev)
+        got = ops.lstm_forward_apply(p, ids)
+        want = CM.lstm_apply(p, ids)
+        got, want = ((torch.stack([d[t] for t in hs], 1) if hs else d)
+                     for d in (got, want))
+        err = float((got - want).abs().max())
+        check(err <= TOL, f"lstm_forward_apply heads={hs} err {err}")
+        max_err = max(max_err, err)
+        emit({"phase": "kernels_lstm", "case": "forward_vs_lstm_apply",
+              "heads": len(hs or (0,)), "max_abs_err": err,
+              "out_abs_max": float(got.abs().max())})
+
+    # the limit can fail: the plain version without the forget-gate +1,
+    # with the gate bias zeroed, or ignoring the mask misses the kernel
+    p32 = params_for()
+    H = cfg.lstm_hidden
+    ids = torch.from_numpy(ragged_ids(rng, 64, 256, cfg.vocab_size)).to(dev)
+    xw, mask = project(p32, ids)
+    got = K2.lstm_scan_fused(xw, mask, p32["wh"])
+    forget = torch.zeros(4 * H, device=dev)
+    forget[H:2 * H] = 1.0
+    miss = {name: float((REF.lstm_scan_ref(a, m, p32["wh"]) - got)
+                        .abs().max())
+            for name, a, m in (("forget_bias_dropped", xw - forget, mask),
+                               ("gate_bias_zeroed", xw - p32["b"], mask),
+                               ("mask_ignored", xw, torch.ones_like(mask)))}
+    for name, e in miss.items():
+        check(e > 10 * TOL, f"plain version with {name} misses by only "
+              f"{e}: the parity limit cannot catch it")
+    emit({"phase": "kernels_lstm", "case": "sensitivity", "miss": miss,
+          "h_abs_max": float(got.abs().max())})
+
+    # bf16 params keep the f32 ranking of rows, per head
+    def forward(p, ids):
+        out = ops.lstm_forward_apply(p, ids)
+        return torch.stack([out[t] for t in heads], 1)
+    p16 = params_for(torch.bfloat16)
+    o32 = forward(p32, ids).cpu().numpy()
+    o16 = forward(p16, ids).cpu().numpy()
+    rho = [spearman(o32[1:, i], o16[1:, i]) for i in range(o32.shape[1])]
+    check(min(rho) >= SPEARMAN_MIN, f"LSTM bf16 Spearman {rho}")
+    emit({"phase": "kernels_lstm", "case": "bf16_spearman", "spearman": rho,
+          "out_abs_max": float(np.abs(o32).max())})
+
+    # each row is bit-identical for every batch size of the ladder, at
+    # another position in its batch: the kernel alone, and the forward
+    # with its projection and heads (row 0 of the full batch is all PAD)
+    ladder = {}
+    for S in (32, 256):
+        ids = torch.from_numpy(ragged_ids(rng, 65, S,
+                                          cfg.vocab_size)).to(dev)
+        xw, mask = project(p32, ids)
+        full = K2.lstm_scan_fused(xw, mask, p32["wh"])
+        ladder[f"kernel_S{S}"] = all(torch.equal(K2.lstm_scan_fused(
+            xw[1:b + 1].contiguous(), mask[1:b + 1].contiguous(),
+            p32["wh"]), full[1:b + 1]) for b in LADDER)
+        for name, p in (("f32", p32), ("bf16", p16)):
+            full = forward(p, ids)
+            ladder[f"forward_{name}_S{S}"] = all(torch.equal(
+                forward(p, ids[1:b + 1].contiguous()), full[1:b + 1])
+                for b in LADDER)
+    emit({"phase": "kernels_lstm", "case": "bit_identity",
+          "ladder": list(LADDER), "identical": ladder})
+    for name, same in ladder.items():
+        check(same, f"LSTM rows bit-identical across the ladder: {name}")
+
+    # times at the main path's widths: kernel and plain version in turns;
+    # the projection plus the kernel against cuDNN's LSTM on packed
+    # prefix sequences (the yardstick; the port never calls it)
+    timings = {}
+    for B in (64, 1):
+        ids = torch.from_numpy(long_ids(rng, B, 256, cfg.vocab_size)).to(dev)
+        xw, mask = project(p32, ids)
+        wh = p32["wh"]
+        x = p32["emb"][ids]
+        lstm = torch.nn.LSTM(cfg.embed_dim, H, batch_first=True).to(dev)
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(p32["wx"].T)
+            lstm.weight_hh_l0.copy_(wh.T)
+            lstm.bias_ih_l0.copy_(p32["b"] + forget)
+            lstm.bias_hh_l0.zero_()
+        lstm.flatten_parameters()
+        packed = torch.nn.utils.rnn.pack_padded_sequence(
+            x, mask.sum(1).long().cpu(), batch_first=True,
+            enforce_sorted=False)
+        with torch.inference_mode():
+            k_ms, p_ms = time_pair(lambda: K2._launch(xw, mask, wh),
+                                   lambda: REF.lstm_scan_ref(xw, mask, wh),
+                                   n_samples=7, reps=3)
+            pk_ms, lib_ms = time_pair(
+                lambda: K2._launch(x @ p32["wx"] + p32["b"], mask, wh),
+                lambda: lstm(packed))
+            lib_h = lstm(packed)[1][0][0]
+            lib_err = float((lib_h - K2._launch(xw, mask, wh)).abs().max())
+        check(lib_err <= TOL, f"cuDNN LSTM yardstick computes another "
+              f"function: err {lib_err}")
+        b_ms, by, flops, nbytes = lstm_bound_ms(xw, mask, wh)
+        longest = int(mask.sum(1).max())
+        timings[B] = {"B": B, "S": 256, "H": H, "ms": k_ms, "plain_ms": p_ms,
+                      "ms_per_step": k_ms / longest, "longest_row": longest,
+                      "proj_plus_kernel_ms": pk_ms, "library_ms": lib_ms,
+                      "library_max_abs_err": lib_err, "bound_ms": b_ms,
+                      "bound_by": by, "flops": flops, "bytes": nbytes}
+        emit({"phase": "kernels_lstm", "case": "timing", **timings[B]})
+    return {"max_abs_err": max_err, "timings": timings}
+
+
+def phase_tower() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch import params as P
+    from repro_torch.configs.costmodel import (COSTMODEL_BASE,
+                                               COSTMODEL_OPERAND)
+    from repro_torch.core.models import DEFAULT_HEADS
+    from repro_torch.kernels import conv1d_stack as K
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as REF
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    max_err = 0.0
+
+    def embedded(cfg, B, S, dtype, ids=None, heads=DEFAULT_HEADS):
+        p = P.from_numpy(seeded_params(cfg, heads, 1), dev, dtype)
+        if ids is None:
+            ids = torch.from_numpy(mixed_ids(rng, B, S,
+                                             cfg.vocab_size)).to(dev)
+        mask = (ids != 0).float()
+        x = p["emb"][ids] * mask[..., None].to(p["emb"].dtype)
+        return (x, [lyr["w"] for lyr in p["convs"]],
+                [lyr["b"] for lyr in p["convs"]], mask), p, ids
+
+    def compare(args, label, **info):
+        nonlocal max_err
+        x, ws, bs, mask = args
+        got = K.conv1d_stack_fused(x, ws, bs, mask)
+        want = REF.conv1d_stack_ref(x.float(), [w.float() for w in ws],
+                                    [b.float() for b in bs], mask)
+        torch.cuda.synchronize()
+        check(got.dtype == x.dtype, f"{label} output dtype {got.dtype}")
+        err = float((got.float() - want).abs().max())
+        if x.dtype == torch.float32:
+            check(err <= TOL, f"{label} {info} err {err}")
+            max_err = max(max_err, err)
+        else:
+            bad = (got.float() - want).abs() > BF16_REL * want.abs() + \
+                BF16_ABS
+            check(not bool(bad.any()), f"{label} {info}: bf16 output "
+                  f"beyond 2^-7 of the f32 plain result (err {err})")
+        pad = mask.sum(1) == 0
+        check(bool(pad.any()) == (x.shape[0] > 1) and
+              bool((got[pad] == 0).all()),
+              f"{label} {info}: the all-masked row pools to 0")
+        emit({"phase": "tower", "case": label, **info, "max_abs_err": err,
+              "out_abs_max": float(want.abs().max())})
+
+    for dt in (torch.float32, torch.bfloat16):
+        for S in (32, 256):
+            for B in (1, 5, 64):
+                compare(embedded(COSTMODEL_BASE, B, S, dt)[0], "base", B=B,
+                        S=S, dtype=str(dt))
+        compare(embedded(COSTMODEL_OPERAND, 5, 1024, dt)[0], "operand",
+                B=5, S=1024, dtype=str(dt))
+        # the reference tests' filter mixes on random x: every position
+        # nonzero, pads included, so only the mask keeps them out
+        for fs_list in ((2, 2, 2), (16, 16, 8, 8, 2, 1), (3, 5), (1,)):
+            C = 16
+
+            def seeded(*shape, scale=1.0):
+                return torch.tensor(rng.normal(size=shape) * scale,
+                                    dtype=dt, device=dev)
+            x = seeded(5, 64, C)
+            mask = torch.from_numpy(
+                (rng.random((5, 64)) < 0.85).astype(np.float32)).to(dev)
+            mask[:, 0] = 1.0
+            mask[0] = 0.0
+            ws = [seeded(fs, C, C, scale=0.2) for fs in fs_list]
+            bs = [seeded(C, scale=0.1) for _ in fs_list]
+            compare((x, ws, bs, mask), "filters", filters=list(fs_list),
+                    dtype=str(dt))
+
+    # the path as a whole, both head layouts, and a pool that ignored the
+    # mask would miss
+    for heads in (DEFAULT_HEADS, None):
+        args, p, ids = embedded(COSTMODEL_BASE, 64, 256, None, heads=heads)
+        got = ops.conv_tower_apply(p, ids)
+        want = ops.conv_tower_apply(p, ids, use_kernel=False)
+        got, want = ((torch.stack([d[t] for t in heads], 1) if heads
+                      else d) for d in (got, want))
+        err = float((got - want).abs().max())
+        check(err <= TOL, f"conv_tower_apply heads={heads} err {err}")
+        max_err = max(max_err, err)
+        emit({"phase": "tower", "case": "conv_tower_apply",
+              "heads": len(heads or (0,)), "max_abs_err": err,
+              "out_abs_max": float(want.abs().max())})
+    x, ws, bs, mask = args
+    unmasked = float((REF.conv1d_stack_ref(x, ws, bs) -
+                      K.conv1d_stack_fused(x, ws, bs, mask)).abs().max())
+    check(unmasked > 10 * TOL, f"an unmasked pool misses by only "
+          f"{unmasked}: the masked-pool check cannot fail")
+    emit({"phase": "tower", "case": "sensitivity",
+          "unmasked_pool_err": unmasked})
+
+    # each row is bit-identical for every batch size of the ladder, at
+    # another position in its batch (row 0 of the full batch is all PAD)
+    for S in (32, 256):
+        x, ws, bs, mask = embedded(COSTMODEL_BASE, 65, S, None)[0]
+        full = K.conv1d_stack_fused(x, ws, bs, mask)
+        same = all(torch.equal(K.conv1d_stack_fused(
+            x[1:b + 1].contiguous(), ws, bs, mask[1:b + 1].contiguous()),
+            full[1:b + 1]) for b in LADDER)
+        check(same, f"tower rows bit-identical across the ladder, S={S}")
+        emit({"phase": "tower", "case": "bit_identity", "S": S,
+              "ladder": list(LADDER), "identical": same})
+
+    # times at the main shape, kernel and plain version in turns
+    timings = {}
+    for B in (64, 1):
+        ids = torch.from_numpy(long_ids(rng, B, 256, 8192)).to(dev)
+        (x, ws, bs, mask), _, _ = embedded(COSTMODEL_BASE, B, 256, None,
+                                           ids=ids)
+        with torch.inference_mode():
+            k_ms, p_ms = time_pair(
+                lambda: K._launch_tower(x, ws, bs, mask),
+                lambda: REF.conv1d_stack_ref(x, ws, bs, mask))
+        flops = B * sum(2 * 256 * w.shape[0] * w.shape[1] * w.shape[2]
+                        for w in ws)
+        nbytes = x.numel() * x.element_size() + mask.numel() * 4 + sum(
+            t.numel() * t.element_size() for t in [*ws, *bs]) \
+            + B * ws[-1].shape[2] * x.element_size()
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        timings[B] = {"B": B, "S": 256, "ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": max(t_ops, t_bytes) * 1e3,
+                      "bound_by": "operations" if t_ops >= t_bytes
+                      else "bytes", "flops": flops, "bytes": nbytes}
+        emit({"phase": "tower", "case": "timing", **timings[B]})
+
+    # the tower path: conv_tower_apply at the main shape, counted alone
+    _, p, ids = embedded(COSTMODEL_BASE, 64, 256, None)
+    K.conv1d_stack_fused.launches = 0
+    out = ops.conv_tower_apply(p, ids)
+    torch.cuda.synchronize()
+    launches = K.conv1d_stack_fused.launches
+    check(launches > 0 and all(bool(torch.isfinite(v).all())
+                               for v in out.values()),
+          f"conv_tower_apply ran the tower kernel ({launches} launches)")
+    emit({"phase": "tower", "case": "path", "launches": launches})
+    return {"max_abs_err": max_err, "timings": timings, "launches": launches}
+
+
+@functools.lru_cache(maxsize=None)
+def serve_world():
+    """The serve phases' dataset (for its vocab), norm stats and the 128
+    graphs their clients ask for, built once."""
+    import numpy as np
+    from repro_torch.core.models import DEFAULT_HEADS
+    from repro_torch.ir import dataset as DS
+    from repro_torch.ir import samplers
     ds = DS.build_dataset(300, mode="ops", max_seq=256, vocab_size=8192,
                           seed=0)
     _, stats = DS.normalize_targets_multi(ds.targets, DEFAULT_HEADS)
-    params = seeded_params(COSTMODEL_BASE, DEFAULT_HEADS, 0)
     rng = np.random.default_rng(1)
     graphs = [samplers.sample_graph(rng) for _ in range(128)]
+    return ds, stats, graphs
+
+
+def run_serve(phase: str, kind: str, params, kernel, plain,
+              card: str) -> dict:
+    """A main path: ``CostModelService(kind, use_kernel=True)`` on the
+    card behind a ``CostModelServer``, 256 requests from 8 client threads
+    (half of them repeats). ``kernel`` is the wrapper whose ``launches``
+    must equal the batches the server flushed after warm-up; ``plain``
+    (f32 params on the card, ids) -> {head: (B,)} is the plain forward
+    the served rows must equal within TOL."""
+    import numpy as np
+    import torch
+    from repro_torch import params as P
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core.server import CostModelServer
+    from repro_torch.core.service import CostModelService
+
+    t0 = time.perf_counter()
+    ds, stats, graphs = serve_world()
     setup_s = time.perf_counter() - t0
 
-    svc = CostModelService("conv1d", COSTMODEL_BASE, params, ds.vocab,
-                           stats, mode="ops", max_seq=256, max_batch=64,
-                           use_kernel=True)
+    def service():
+        return CostModelService(kind, COSTMODEL_BASE, params, ds.vocab,
+                                stats, mode="ops", max_seq=256,
+                                max_batch=64, use_kernel=True)
+    svc = service()
     server = CostModelServer(svc, max_batch=64, flush_us=2000)
     t1 = time.perf_counter()
     server.start(warmup=True)
     warm_s = time.perf_counter() - t1
-    K.conv_forward_fused.launches = 0       # served batches from here on
+    kernel.launches = 0                     # served batches from here on
     rows, lat = {}, []
     lock = threading.Lock()
     errors = []
@@ -354,7 +768,7 @@ def phase_serve(card: str) -> dict:
     preds = server.predict_all(graphs[:8])
     snap = server.metrics_snapshot()
     server.stop()
-    launches = K.conv_forward_fused.launches
+    launches = kernel.launches
 
     check(len(rows) == len(graphs), "every graph answered")
     got = np.stack([rows[i] for i in range(len(graphs))])
@@ -363,26 +777,31 @@ def phase_serve(card: str) -> dict:
           "denormalized predictions finite")
     check(snap["cache_hits"] > 0, f"LRU hits {snap['cache_hits']}")
     check(launches > 0 and launches == snap["batches"],
-          f"one launch per served batch: {launches} launches, "
+          f"{phase}: one launch per served batch: {launches} launches, "
           f"{snap['batches']} batches")
 
     # served rows == a direct plain forward of the same ids (TF32 off)
     dev_p = P.from_numpy(params, "cuda")
     by_len = {}
-    for i, g in enumerate(graphs):
-        _, ids = svc.entry(g)
+    entries = [svc.entry(g) for g in graphs]
+    for i, (_, ids) in enumerate(entries):
         by_len.setdefault(len(ids), []).append((i, ids))
     err = 0.0
     with torch.inference_mode():
         for group in by_len.values():
             idx = [i for i, _ in group]
             ids = torch.from_numpy(np.stack([x for _, x in group])).cuda()
-            want = REF.conv_forward_ref(dev_p, ids)
+            want = plain(dev_p, ids)
             want = torch.stack([want[t] for t in svc.heads], 1).cpu().numpy()
             err = max(err, float(np.abs(got[idx] - want).max()))
-    check(err <= TOL, f"served rows vs plain forward err {err}")
+    check(err <= TOL, f"{phase}: served rows vs plain forward err {err}")
+    # ... and a direct predict of another service, in other batches, bit
+    # for bit
+    direct = service().predict_entries(entries)
+    identical = bool(np.array_equal(got, direct))
+    check(identical, f"{phase}: served rows bit-identical to direct")
     lat_ms = np.asarray(lat) * 1e3
-    out = {"phase": "serve", "requests": len(lat),
+    out = {"phase": phase, "kind": kind, "requests": len(lat),
            "requests_per_s": len(lat) / wall,
            "p50_ms": float(np.percentile(lat_ms, 50)),
            "p99_ms": float(np.percentile(lat_ms, 99)),
@@ -391,10 +810,30 @@ def phase_serve(card: str) -> dict:
            "cache_hits": snap["cache_hits"], "batches": snap["batches"],
            "batch_occupancy": snap["batch_occupancy"],
            "launches": launches, "max_abs_err_vs_plain": err,
+           "identical_to_direct": identical,
            "setup_s": setup_s, "warmup_s": warm_s,
            "phase_forward_s": snap["phase_forward_s"], "card": card}
     emit(out)
     return out
+
+
+def phase_serve(card: str) -> dict:
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core.models import DEFAULT_HEADS
+    from repro_torch.kernels import conv1d_stack as K
+    from repro_torch.kernels import ref as REF
+    return run_serve("serve", "conv1d",
+                     seeded_params(COSTMODEL_BASE, DEFAULT_HEADS, 0),
+                     K.conv_forward_fused, REF.conv_forward_ref, card)
+
+
+def phase_serve_lstm(card: str) -> dict:
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core import models as CM
+    from repro_torch.kernels import lstm_scan as K2
+    return run_serve("serve_lstm", "lstm",
+                     seeded_lstm_params(COSTMODEL_BASE, CM.DEFAULT_HEADS, 0),
+                     K2.lstm_scan_fused, CM.lstm_apply, card)
 
 
 def main() -> int:
@@ -410,7 +849,12 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     serve = phase_serve(dev["nvidia_smi"])
+    lstm = phase_kernels_lstm()
+    serve_lstm = phase_serve_lstm(dev["nvidia_smi"])
+    tower = phase_tower()
     t64, t1 = kern["timings"][64], kern["timings"][1]
+    l64, l1 = lstm["timings"][64], lstm["timings"][1]
+    w64, w1 = tower["timings"][64], tower["timings"][1]
     emit({"kernels": [{
         "name": "conv_forward_fused", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -424,6 +868,32 @@ def main() -> int:
         "checked_wrapper_ms": t64["checked_wrapper_ms"],
         "b1": {k: t1[k] for k in ("ms", "plain_ms", "wrapper_ms",
                                   "checked_wrapper_ms", "bound_ms",
+                                  "bound_by")},
+        "card": dev["nvidia_smi"]}, {
+        "name": "lstm_scan_fused", "route": "cuda",
+        "source": LSTM_SOURCE, "replaces": LSTM_TPU_KERNEL,
+        "launches": serve_lstm["launches"],
+        "max_abs_err": lstm["max_abs_err"],
+        "ms": l64["ms"], "plain_ms": l64["plain_ms"],
+        "bound_ms": l64["bound_ms"], "bound_by": l64["bound_by"],
+        "library_ms": l64["library_ms"],
+        "library": "torch.nn.LSTM (cuDNN) on packed prefix sequences, "
+                   "from embedded x; against proj_plus_kernel_ms",
+        "proj_plus_kernel_ms": l64["proj_plus_kernel_ms"],
+        "library_max_abs_err": l64["library_max_abs_err"],
+        "ms_per_step": l64["ms_per_step"],
+        "shape": {"B": 64, "S": 256, "H": l64["H"]},
+        "b1": {k: l1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "ms_per_step", "proj_plus_kernel_ms",
+                                  "library_ms")},
+        "card": dev["nvidia_smi"]}, {
+        "name": "conv1d_stack_fused", "route": "cuda",
+        "source": TOWER_SOURCE, "replaces": TOWER_TPU_KERNEL,
+        "launches": tower["launches"], "max_abs_err": tower["max_abs_err"],
+        "ms": w64["ms"], "plain_ms": w64["plain_ms"],
+        "bound_ms": w64["bound_ms"], "bound_by": w64["bound_by"],
+        "library_ms": None, "shape": {"B": 64, "S": 256},
+        "b1": {k: w1[k] for k in ("ms", "plain_ms", "bound_ms",
                                   "bound_by")},
         "card": dev["nvidia_smi"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

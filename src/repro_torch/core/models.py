@@ -1,19 +1,23 @@
-"""The cost model's regressors in PyTorch: the Conv1D+MaxPool+FC family.
+"""The cost model's regressors in PyTorch: the Conv1D+MaxPool+FC family
+and the LSTM.
 
 The deployed model (paper Figs 5/6): token embedding (PAD id 0 masked),
 N stacked "same" Conv1D + ReLU, MaxPool1D over every sequence position,
-the hidden FC stack, then the heads. Two head layouts, as in the
-reference:
+the hidden FC stack, then the heads. The paper's middle model is a
+masked LSTM whose final hidden state feeds the heads. Two head layouts,
+as in the reference:
 
-* **single-head**: ``fc[-1]`` is a ``(F, 1)`` scalar head and
-  ``conv_apply`` returns a ``(B,)`` tensor;
+* **single-head**: the last layer (``fc[-1]`` for the conv model,
+  ``head`` for the LSTM) is a ``(F, 1)`` scalar head and ``*_apply``
+  returns a ``(B,)`` tensor;
 * **multi-head**: ``params["heads"]`` maps each target to a ``(F, 1)``
-  linear head over the shared features and ``conv_apply`` returns
+  linear head over the shared features and ``*_apply`` returns
   ``{target: (B,)}``.
 
 Layouts follow the reference at every public function: activations are
-``(B, S, C)`` and conv weights ``(fs, Cin, Cout)``. The FC, LSTM and
-transformer families are not ported yet (:func:`get_model` says so).
+``(B, S, C)``, conv weights ``(fs, Cin, Cout)`` and LSTM weights
+``(in, 4H)`` with the gates in i, f, g, o order. The FC and transformer
+families are not ported yet (:func:`get_model` says so).
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.params import conv_init
+from repro_torch.params import conv_init, lstm_init
 
 # Canonical multi-target head set (every analyzer target, in analyzer order).
 DEFAULT_HEADS: Tuple[str, ...] = (
@@ -102,10 +106,52 @@ def conv_apply(p, ids: torch.Tensor, *, pooled_feats: bool = False):
     return (out, pooled) if pooled_feats else out
 
 
-MODELS = {"conv1d": (conv_init, conv_apply)}
+def lstm_scan(xw: torch.Tensor, mask: torch.Tensor,
+              wh: torch.Tensor) -> torch.Tensor:
+    """The masked LSTM recurrence in xw's dtype. xw: (B, S, 4H) input
+    gates; mask: (B, S), 1 = valid; wh: (H, 4H). Each step's gates split
+    in i, f, g, o order, the forget gate gets +1, and a padded step
+    carries (h, c) through unchanged. Returns the final h, (B, H)."""
+    h = torch.zeros((xw.shape[0], wh.shape[0]), dtype=xw.dtype,
+                    device=xw.device)
+    c = h
+    for t in range(xw.shape[1]):
+        gates = xw[:, t] + h @ wh
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(i), torch.sigmoid(f + 1.0), torch.sigmoid(o)
+        c_new = f * c + i * torch.tanh(g)
+        h_new = o * torch.tanh(c_new)
+        keep = mask[:, t, None]
+        h = h_new * keep + h * (1 - keep)
+        c = c_new * keep + c * (1 - keep)
+    return h
+
+
+def lstm_encode(p, ids: torch.Tensor) -> torch.Tensor:
+    """Masked LSTM scan -> final hidden state as shared features.
+
+    The input projection covers every position (a PAD position gets
+    ``emb[0] @ wx + b``, which its mask then skips). The mask and the
+    initial state follow the embedding dtype, so bf16 params run a bf16
+    scan, as in the reference. ``nn.LSTM`` has neither the forget bias
+    nor the masked carry, hence :func:`lstm_scan`."""
+    x = p["emb"][ids]                            # (B, S, E)
+    xw = x @ p["wx"] + p["b"]                    # (B, S, 4H)
+    return lstm_scan(xw, _mask(ids).to(x.dtype), p["wh"])
+
+
+def lstm_apply(p, ids: torch.Tensor):
+    h = lstm_encode(p, ids)
+    if "heads" in p:
+        return apply_heads(p["heads"], h)
+    return scalar_head(p["head"], h)
+
+
+MODELS = {"conv1d": (conv_init, conv_apply),
+          "lstm": (lstm_init, lstm_apply)}
 
 # Families of the reference that later slices port.
-NOT_PORTED = ("fc", "lstm", "xformer")
+NOT_PORTED = ("fc", "xformer")
 
 
 def get_model(kind: str):

@@ -108,17 +108,19 @@ class CostModelService:
     # Serve through the fused forward (kernels/ops.forward_apply; the
     # kernels' plain versions on the CPU) instead of the plain PyTorch
     # apply. conv1d runs the full ids-in/predictions-out CUDA kernel
-    # (gather + tower + FC + heads in one launch). Composes with
-    # dtype="bf16": the kernel reads bf16 params but accumulates f32
-    # (drift vs f32 is Spearman-gated in tests). The kernel's
-    # accumulation order differs from cuDNN's, so f32 parity is
-    # "allclose", not bit-identical.
+    # (gather + tower + FC + heads in one launch); lstm gathers the input
+    # projection from a table computed once here and runs the recurrence
+    # and the heads in the LSTM CUDA kernel. Composes with dtype="bf16":
+    # the kernels read bf16 params but accumulate f32 (drift vs f32 is
+    # Spearman-gated in tests). The kernels' accumulation order differs
+    # from cuDNN's and cuBLAS's, so f32 parity is "allclose", not
+    # bit-identical.
     use_kernel: bool = False
     buckets: Optional[Tuple[int, ...]] = None   # None -> power-of-two ladder
     # batch sizes forward passes are padded up to (None -> power-of-two
     # ladder capped at max_batch). Fixing the set of executed (B, S)
     # shapes keeps the shape set finite — warmup() runs all of them — and
-    # the kernel computes each row in its own thread block, so per-row
+    # each kernel computes each row in its own thread block, so per-row
     # results do not depend on how requests were packed into batches and
     # coalesced server batches reproduce direct per-request predictions
     # bit-for-bit on the card.
@@ -144,10 +146,6 @@ class CostModelService:
                     f"use_kernel serves the fused forward for "
                     f"kinds {KOPS.KERNEL_KINDS}; kind={self.kind!r} has "
                     f"no kernel")
-            if self.kind == "lstm":
-                raise NotImplementedError(
-                    "use_kernel for kind='lstm' needs the LSTM "
-                    "recurrence kernel, which is not ported yet")
             kernel_kind = self.kind
 
             def apply_fn(params, ids):
@@ -171,6 +169,10 @@ class CostModelService:
         params = P.from_numpy(
             self.params, self._device,
             torch.bfloat16 if self.dtype == "bf16" else None)
+        if self.use_kernel and self.kind == "lstm":
+            # the input projection of every id, once: forward passes
+            # gather from it (batch-invariant rows)
+            params = dict(params, xw_table=KOPS.lstm_xw_table(params))
         self._apply = lambda ids: apply_fn(params, ids)
         self._vocab_rows = int(params["emb"].shape[0])
         self.heads = CM.model_heads(self.params) or (
@@ -651,13 +653,14 @@ class CostModelService:
 
     def warmup(self, batch_sizes: Optional[Sequence[int]] = None,
                buckets: Optional[Sequence[int]] = None) -> int:
-        """Build the kernel library (fused forward on the card), then
-        run every (bucket x ladder-batch) shape once, so no caller pays
-        first-request set-up (the build, library load, cuDNN plans,
-        allocator growth). Returns the number of shapes run."""
+        """Build the library of this kind's fused forward (on the card),
+        then run every (bucket x ladder-batch) shape once, so no caller
+        pays first-request set-up (the build, library load, cuDNN and
+        cuBLAS plans, allocator growth). Returns the number of shapes
+        run."""
         if self.use_kernel and self._device.type == "cuda":
-            from repro_torch.kernels import conv1d_stack
-            conv1d_stack.build()
+            from repro_torch.kernels import ops as KOPS
+            KOPS.build(self.kind)
         n = 0
         for s in (buckets if buckets is not None else self.buckets):
             for b in (batch_sizes if batch_sizes is not None

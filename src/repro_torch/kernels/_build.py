@@ -19,8 +19,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -39,7 +41,8 @@ BUILD_DIR = _build_dir()
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()                       # guards _name_locks
+_name_locks: Dict[str, threading.Lock] = {}     # one per source
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -83,8 +86,11 @@ def _compile(name: str, out: Path) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The compiled library for ``csrc/<name>.cu``, building it first if
-    this source has not been built yet."""
+    this source has not been built yet. Builds of different sources may
+    run at once (see :func:`build_all`)."""
     with _lock:
+        lock = _name_locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             path = library_path(name)
@@ -92,6 +98,28 @@ def load(name: str) -> ctypes.CDLL:
                 _compile(name, path)
             lib = _libs[name] = ctypes.CDLL(str(path))
         return lib
+
+
+def build_all(names: Sequence[str]) -> Dict[str, float]:
+    """Build (or load) several libraries at once, one ``nvcc`` for each
+    source, all started together. Returns each one's seconds; raises the
+    first build error."""
+    def timed(name: str) -> float:
+        t0 = time.perf_counter()
+        load(name)
+        return time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        secs = list(pool.map(timed, names))
+    return dict(zip(names, secs))
+
+
+def error_string(name: str, code: int) -> str:
+    """The CUDA error message for ``code``, as ``csrc/<name>.cu``'s
+    ``<name>_error_string`` (cudaGetErrorString) gives it."""
+    fn = getattr(load(name), f"{name}_error_string")
+    fn.restype = ctypes.c_char_p
+    fn.argtypes = [ctypes.c_int]
+    return fn(code).decode()
 
 
 def build_log(name: str) -> str:

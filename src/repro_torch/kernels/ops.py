@@ -4,9 +4,15 @@
   ids in, per-target predictions out, one launch of the CUDA kernel
   (embedding gather, pad mask, conv tower, max-pool, FC stack and the
   stacked heads).
+* :func:`lstm_forward_apply` — kind="lstm": the input projection is a
+  gather from the table ``emb @ wx + b`` (:func:`lstm_xw_table`), the
+  recurrence and the stacked heads one launch of the LSTM kernel.
+* :func:`conv_tower_apply` — the "half-fused" rung of kind="conv1d": the
+  gather in PyTorch, the conv tower and a masked max-pool in one launch
+  of the tower kernel, the FC stack and heads in PyTorch.
 * :func:`forward_apply` — dispatch by model kind (see KERNEL_KINDS).
 
-Params may be float32 or bfloat16; arithmetic is float32 in the kernel
+Params may be float32 or bfloat16; arithmetic is float32 in the kernels
 either way. On the CPU the wrappers compute the same function with the
 kernels' plain versions.
 """
@@ -14,22 +20,41 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.models import model_heads
-from repro_torch.kernels.conv1d_stack import conv_forward_fused
+from repro_torch.core.models import fc_finish, model_heads
+from repro_torch.kernels import _build
+from repro_torch.kernels import conv1d_stack as K_CONV
+from repro_torch.kernels import lstm_scan as K_LSTM
+from repro_torch.kernels import ref as REF
+from repro_torch.kernels.conv1d_stack import (conv1d_stack_fused,
+                                              conv_forward_fused)
+from repro_torch.kernels.lstm_scan import lstm_scan_fused
 from repro_torch.params import tree_leaves
 
-# Model kinds with a fused serving forward (see forward_apply).
+# Model kinds with a fused serving forward (see forward_apply), and the
+# kernel library each one's forward launches.
 KERNEL_KINDS = ("conv1d", "lstm")
+_KERNEL_LIB = {"conv1d": K_CONV.LIB, "lstm": K_LSTM.LIB}
+
+# The reference's names for the two kernels that ops composes.
+conv1d_stack = conv1d_stack_fused
+lstm_scan = lstm_scan_fused
+
+
+def build(kind: str) -> None:
+    """Compile (or load) the library of ``kind``'s fused forward now
+    rather than at its first launch."""
+    _build.load(_KERNEL_LIB[kind])
 
 
 def _stacked_heads(params):
     """(head_w, head_b, names) with per-target columns stacked so every
     head is one matmul, in ``params["heads"]`` order: callers map the
     columns back by the names returned here, never by position.
-    Single-head layout: the head is ``fc[-1]``."""
+    Single-head layout: the head is the LSTM's ``head``, or the conv
+    model's ``fc[-1]``."""
     names = model_heads(params)
     if names is None:
-        head = params["fc"][-1]
+        head = params["head"] if "head" in params else params["fc"][-1]
         return head["w"], head["b"], None
     hs = [params["heads"][t] for t in names]
     return (torch.cat([h["w"] for h in hs], dim=1),
@@ -64,18 +89,66 @@ def conv_forward_apply(params, ids: torch.Tensor, *,
     return {t: out[:, i] for i, t in enumerate(names)}
 
 
+def lstm_xw_table(params) -> torch.Tensor:
+    """The LSTM's input projection of every token id, ``emb @ wx + b``:
+    (V, 4H) in the params' dtype. Row 0 is PAD's projection, which the
+    mask then skips, as in ``lstm_encode``."""
+    return params["emb"] @ params["wx"] + params["b"]
+
+
+def lstm_forward_apply(params, ids: torch.Tensor, *,
+                       check_ids: bool = True):
+    """Fused serving forward for kind="lstm": ids -> predictions.
+
+    The input projection of each position depends only on its id, so it
+    is a gather from :func:`lstm_xw_table` (``params["xw_table"]`` when
+    the caller precomputed it, as the service does; else computed here).
+    A gather gives every row the same bits in any batch, which a matmul
+    over the batch's B*S rows does not: cuBLAS picks its algorithm by the
+    shape. The recurrence and the stacked heads are then one launch of
+    :func:`lstm_scan_fused`. Output matches ``lstm_apply``, always
+    float32. ``check_ids`` checks the id range first; on a CUDA tensor
+    that waits for the card, and the service, which checks on the host,
+    passes False."""
+    if check_ids:
+        K_CONV.check_id_range(ids, params["emb"].shape[0])
+    table = params.get("xw_table")
+    if table is None:
+        table = lstm_xw_table(params)
+    mask = (ids != 0).to(torch.float32)
+    head_w, head_b, names = _stacked_heads(params)
+    out = lstm_scan_fused(table[ids], mask, params["wh"], head_w, head_b)
+    if names is None:
+        return out[:, 0]
+    return {t: out[:, i] for i, t in enumerate(names)}
+
+
+def conv_tower_apply(params, ids: torch.Tensor, *, use_kernel: bool = True):
+    """Drop-in for ``conv_apply`` through the tower kernel, with the
+    gather outside it. Its pool is masked (pads never enter the max),
+    which ``conv_apply``'s is not: the two agree only where no pad
+    position wins the max, as with zero biases. ``use_kernel=False`` runs
+    the tower's plain version instead."""
+    mask = (ids != 0).to(torch.float32)
+    x = params["emb"][ids] * mask[..., None].to(params["emb"].dtype)
+    weights = [lyr["w"] for lyr in params["convs"]]
+    biases = [lyr["b"] for lyr in params["convs"]]
+    if use_kernel:
+        h = conv1d_stack_fused(x, weights, biases, mask)
+    else:
+        h = REF.conv1d_stack_ref(x, weights, biases, mask)
+    return fc_finish(params, h)
+
+
 def forward_apply(kind: str, params, ids: torch.Tensor, *,
                   check_ids: bool = True):
     """Dispatch to the fused forward for ``kind``.
 
-    Raises ValueError for kinds without a kernel (see KERNEL_KINDS) and
-    NotImplementedError for the LSTM, whose recurrence kernel is not
-    ported yet."""
+    Raises ValueError for kinds without a kernel (see KERNEL_KINDS)."""
     if kind == "conv1d":
         return conv_forward_apply(params, ids, check_ids=check_ids)
     if kind == "lstm":
-        raise NotImplementedError(
-            "the fused LSTM forward (lstm_scan_fused) is not ported yet")
+        return lstm_forward_apply(params, ids, check_ids=check_ids)
     raise ValueError(
         f"use_kernel supports kinds {KERNEL_KINDS}, not {kind!r}")
 

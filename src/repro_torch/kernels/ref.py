@@ -18,6 +18,34 @@ from repro_torch.params import tree_map
 conv1d_same = CM.conv1d
 
 
+def conv1d_stack_ref(x, weights, biases, mask=None):
+    """The plain version of kernels/conv1d_stack.py::conv1d_stack_fused:
+    L x ("same" conv + bias + ReLU), then the max over the sequence,
+    (B, S, C0) -> (B, C_last), in x's dtype. With ``mask`` (B, S), the
+    positions where it is 0 never enter the max (they become -inf), and
+    the result is floored at 0, so an all-masked row pools to 0."""
+    h = x
+    for w, b in zip(weights, biases):
+        h = torch.relu(conv1d_same(h, w, b))
+    if mask is None:
+        return h.amax(dim=1)
+    h = torch.where(mask[..., None] > 0, h, float("-inf"))
+    return torch.clamp_min(h.amax(dim=1), 0.0)
+
+
+def lstm_scan_ref(xw, mask, wh, head_w=None, head_b=None):
+    """The plain version of kernels/lstm_scan.py::lstm_scan_fused: the
+    masked LSTM recurrence in float32. xw: (B, S, 4H) input gates
+    (``x @ wx + b``); mask: (B, S), 1 = valid; wh: (H, 4H). Gates in
+    i, f, g, o order, forget gate +1, a padded step carries (h, c)
+    through unchanged. Returns the final h, (B, H) float32, or with
+    stacked heads (H, n) + (n,) their (B, n) float32 predictions."""
+    h = CM.lstm_scan(xw.float(), mask.float(), wh.float())
+    if head_w is None:
+        return h
+    return h @ head_w.float() + head_b.float()
+
+
 def conv_forward_fused_ref(ids, emb, conv_weights, conv_biases,
                            fc_weights, fc_biases, head_w, head_b):
     """The plain version of kernels/conv1d_stack.py::conv_forward_fused,

@@ -6,7 +6,10 @@ A parameter tree is a plain dict with the reference layout:
 * ``convs[i]`` ``{"w": (fs, Cin, Cout), "b": (Cout,)}``;
 * ``fc[i]`` ``{"w": (Fin, Fout), "b": (Fout,)}``;
 * multi-head: ``heads[t]`` ``{"w": (F, 1), "b": (1,)}``, one per target;
-  single-head: no ``heads`` key, ``fc[-1]`` is the scalar head.
+  single-head: no ``heads`` key, ``fc[-1]`` is the scalar head;
+* the LSTM instead of ``convs``/``fc``: ``wx`` ``(E, 4H)``, ``wh``
+  ``(H, 4H)``, ``b`` ``(4H,)``, and ``heads[t]`` or, single-head, one
+  ``head`` ``{"w": (H, 1), "b": (1,)}``.
 
 Dict keys keep their names through every conversion, so a consumer maps
 head outputs by name and never by position (a tree that went through a
@@ -95,4 +98,27 @@ def conv_init(cfg, heads: Optional[Sequence[str]] = None, *,
         p["heads"] = {t: {"w": _normal((f, 1), _fan_in_scale((f, 1)),
                                        generator),
                           "b": torch.zeros((1,))} for t in heads}
+    return p
+
+
+def lstm_init(cfg, heads: Optional[Sequence[str]] = None, *,
+              generator: torch.Generator):
+    """LSTM params with the reference's shapes and scales: embedding
+    N(0, 0.02); input and recurrent weights ``wx`` (E, 4H) and ``wh``
+    (H, 4H), gates in i, f, g, o order, N(0, 1/fan_in); zero gate bias
+    ``b`` (4H,); per-target heads (H, 1) in ``heads``, or one ``head`` in
+    the single-head layout. float32, on the CPU."""
+    h = cfg.lstm_hidden
+
+    def weight(shape):
+        return _normal(shape, _fan_in_scale(shape), generator)
+    p = {"emb": _normal((cfg.vocab_size, cfg.embed_dim), 0.02, generator),
+         "wx": weight((cfg.embed_dim, 4 * h)),
+         "wh": weight((h, 4 * h)),
+         "b": torch.zeros((4 * h,))}
+    if heads:
+        p["heads"] = {t: {"w": weight((h, 1)), "b": torch.zeros((1,))}
+                      for t in heads}
+    else:
+        p["head"] = {"w": weight((h, 1)), "b": torch.zeros((1,))}
     return p

@@ -1,6 +1,7 @@
-"""The port on an NVIDIA card: the CUDA kernel against its plain version,
-rows bit-identical across the batch ladder, and the service and server
-on the card. Every case is marked ``chip`` and skips where
+"""The port on an NVIDIA card: the CUDA kernels (the fused conv forward,
+the LSTM recurrence, the masked conv tower) against their plain
+versions, rows bit-identical across the batch ladder, and the services
+and server on the card. Every case is marked ``chip`` and skips where
 ``torch.cuda.is_available()`` is False. This file imports neither JAX
 nor the reference package, so it runs on a machine that has only the
 port's dependencies:
@@ -16,12 +17,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import params as P
 from repro_torch.configs import costmodel as CFGS
+from repro_torch.core import models as CM
 from repro_torch.core import tokenizer as TOK
 from repro_torch.core.models import DEFAULT_HEADS
 from repro_torch.core.server import CostModelServer
 from repro_torch.core.service import CostModelService
 from repro_torch.ir import samplers
 from repro_torch.kernels import conv1d_stack as K
+from repro_torch.kernels import lstm_scan as K2
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as REF
 
@@ -58,6 +61,18 @@ def seeded_params(cfg, heads, seed):
     p = P.conv_init(cfg, heads, generator=g)
     p["emb"] = p["emb"] * 100.0
     for lyr in [*p["convs"], *p["fc"], *p.get("heads", {}).values()]:
+        lyr["b"] = torch.randn(lyr["b"].shape, generator=g) * 0.1
+    return p
+
+
+def seeded_lstm_params(cfg, heads, seed):
+    """Seeded LSTM params with the embedding scaled x50 (input gates of
+    about unit size) and the gate and head biases drawn nonzero."""
+    g = torch.Generator().manual_seed(seed)
+    p = P.lstm_init(cfg, heads, generator=g)
+    p["emb"] = p["emb"] * 50.0
+    p["b"] = torch.randn(p["b"].shape, generator=g) * 0.1
+    for lyr in (p["heads"].values() if heads else [p["head"]]):
         lyr["b"] = torch.randn(lyr["b"].shape, generator=g) * 0.1
     return p
 
@@ -157,6 +172,149 @@ def test_wrapper_rejects_too_many_layers_on_card(cuda):
         K.conv_forward_fused(ids, *args)
 
 
+# ------------------------------------------------------ LSTM recurrence
+def _scan_inputs(device, B, S, H, dtype, seed=0):
+    """Random gates, a random mask with row 0 all masked (when B > 1),
+    and a wh of the reference test's scale (H <= 16) or 1/sqrt(H)."""
+    rng = np.random.default_rng(seed)
+    xw = torch.tensor(rng.normal(size=(B, S, 4 * H)) * 0.5, dtype=dtype,
+                      device=device)
+    mask = torch.from_numpy((rng.random((B, S)) < 0.8).astype(np.float32))
+    if B > 1:
+        mask[0] = 0.0
+    scale = 0.3 if H <= 16 else H ** -0.5
+    wh = torch.tensor(rng.normal(size=(H, 4 * H)) * scale, dtype=dtype,
+                      device=device)
+    return xw, mask.to(device), wh
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H", [(1, 16, 8), (5, 32, 16), (8, 64, 16),
+                                   (1, 256, 128), (5, 32, 128),
+                                   (64, 256, 128)])
+def test_lstm_kernel_matches_plain(cuda, B, S, H, dtype):
+    """The reference's test shapes (f32 within its 1e-5) and
+    COSTMODEL_BASE's H=128 (2e-4); bf16 against the plain version on the
+    same bf16 values; the all-PAD row is exactly 0."""
+    xw, mask, wh = _scan_inputs(cuda, B, S, H, dtype)
+    before = K2.lstm_scan_fused.launches
+    got = K2.lstm_scan_fused(xw, mask, wh)
+    want = REF.lstm_scan_ref(xw, mask, wh)
+    torch.cuda.synchronize()
+    assert K2.lstm_scan_fused.launches == before + 1
+    tol = 1e-5 if H <= 16 and dtype == torch.float32 else TOL
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert B == 1 or not got[0].any()
+
+
+@pytest.mark.parametrize("heads", [None, DEFAULT_HEADS])
+def test_lstm_forward_matches_plain_model(cuda, heads):
+    cfg = CFGS.COSTMODEL_BASE
+    pt = P.from_numpy(seeded_lstm_params(cfg, heads, 1), cuda)
+    ids = torch.from_numpy(ragged_ids(np.random.default_rng(7), 16, 256,
+                                      cfg.vocab_size)).to(cuda)
+    got = _columns(ops.lstm_forward_apply(pt, ids), heads)
+    want = _columns(CM.lstm_apply(pt, ids), heads)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def test_lstm_rows_bit_identical_across_ladder(cuda):
+    """Each row, at another position in a batch of every ladder size,
+    has the same bits: the kernel alone and the forward with its
+    projection table and in-kernel heads."""
+    cfg = CFGS.COSTMODEL_BASE
+    pt = P.from_numpy(seeded_lstm_params(cfg, DEFAULT_HEADS, 2), cuda)
+    ids = torch.from_numpy(ragged_ids(np.random.default_rng(3), 65, 32,
+                                      cfg.vocab_size)).to(cuda)
+    full = ops.lstm_forward_apply(pt, ids)
+    xw = ops.lstm_xw_table(pt)[ids]
+    mask = (ids != 0).float()
+    h = K2.lstm_scan_fused(xw, mask, pt["wh"])
+    for b in LADDER:
+        part = ops.lstm_forward_apply(pt, ids[1:b + 1].contiguous())
+        for t in DEFAULT_HEADS:
+            assert torch.equal(part[t], full[t][1:b + 1]), (b, t)
+        assert torch.equal(K2.lstm_scan_fused(
+            xw[1:b + 1].contiguous(), mask[1:b + 1].contiguous(),
+            pt["wh"]), h[1:b + 1]), b
+
+
+def test_lstm_hidden_above_the_limit_raises(cuda):
+    limit = K2.max_hidden()
+    assert limit == 128
+    xw, mask, wh = _scan_inputs(cuda, 2, 8, limit + 4, torch.float32)
+    with pytest.raises(ValueError, match="kMaxHidden"):
+        K2.lstm_scan_fused(xw, mask, wh)
+
+
+# ------------------------------------------------------- tower (masked)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg_name,S,B", [("COSTMODEL_BASE", 256, 64),
+                                          ("COSTMODEL_BASE", 32, 5),
+                                          ("COSTMODEL_OPERAND", 1024, 5)])
+def test_tower_kernel_matches_plain(cuda, cfg_name, S, B, dtype):
+    """The masked tower against conv1d_stack_ref(mask) on the f32-widened
+    inputs: f32 within 2e-4, a bf16 output within 2^-7 relative (its
+    rounding); the all-masked row pools to 0."""
+    cfg = getattr(CFGS, cfg_name)
+    pt = card_params(cfg, DEFAULT_HEADS, cuda, dtype)
+    ids = torch.from_numpy(ragged_ids(np.random.default_rng(S), B, S,
+                                      cfg.vocab_size)).to(cuda)
+    mask = (ids != 0).float()
+    x = pt["emb"][ids] * mask[..., None].to(dtype)
+    ws = [lyr["w"] for lyr in pt["convs"]]
+    bs = [lyr["b"] for lyr in pt["convs"]]
+    before = K.conv1d_stack_fused.launches
+    got = K.conv1d_stack_fused(x, ws, bs, mask)
+    want = REF.conv1d_stack_ref(x.float(), [w.float() for w in ws],
+                                [b.float() for b in bs], mask)
+    torch.cuda.synchronize()
+    assert K.conv1d_stack_fused.launches == before + 1
+    assert got.dtype == dtype
+    rtol = TOL if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
+    assert not got[0].any()
+
+
+def test_tower_rows_bit_identical_across_ladder(cuda):
+    cfg = CFGS.COSTMODEL_BASE
+    pt = card_params(cfg, DEFAULT_HEADS, cuda, seed=1)
+    ids = torch.from_numpy(ragged_ids(np.random.default_rng(4), 65, 256,
+                                      cfg.vocab_size)).to(cuda)
+    mask = (ids != 0).float()
+    x = pt["emb"][ids] * mask[..., None]
+    ws = [lyr["w"] for lyr in pt["convs"]]
+    bs = [lyr["b"] for lyr in pt["convs"]]
+    full = K.conv1d_stack_fused(x, ws, bs, mask)
+    for b in LADDER:
+        assert torch.equal(K.conv1d_stack_fused(
+            x[1:b + 1].contiguous(), ws, bs, mask[1:b + 1].contiguous()),
+            full[1:b + 1]), b
+
+
+def test_tower_apply_matches_plain_path(cuda):
+    cfg = CFGS.COSTMODEL_BASE
+    pt = card_params(cfg, DEFAULT_HEADS, cuda)
+    ids = torch.from_numpy(ragged_ids(np.random.default_rng(6), 16, 256,
+                                      cfg.vocab_size)).to(cuda)
+    got = _columns(ops.conv_tower_apply(pt, ids), DEFAULT_HEADS)
+    want = _columns(ops.conv_tower_apply(pt, ids, use_kernel=False),
+                    DEFAULT_HEADS)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def test_tower_plan_tile(cuda):
+    base, op = CFGS.COSTMODEL_BASE, CFGS.COSTMODEL_OPERAND
+    assert K.tower_plan_tile(256, base.embed_dim, base.conv_filters,
+                             base.conv_channels) == 256
+    assert 1 <= K.tower_plan_tile(1024, op.embed_dim, op.conv_filters,
+                                  op.conv_channels) < 1024
+    big = CFGS.COSTMODEL_100M
+    with pytest.raises(ValueError, match="shared memory"):
+        K.tower_plan_tile(1024, big.embed_dim, big.conv_filters,
+                          big.conv_channels)
+
+
 @pytest.fixture
 def corpus():
     rng = np.random.default_rng(3)
@@ -166,24 +324,29 @@ def corpus():
     return graphs, vocab
 
 
-def _service(vocab, device, **kw):
+SEEDED = {"conv1d": seeded_params, "lstm": seeded_lstm_params}
+KERNEL = {"conv1d": K.conv_forward_fused, "lstm": K2.lstm_scan_fused}
+
+
+def _service(vocab, device, kind="conv1d", **kw):
     cfg = CFGS.COSTMODEL_BASE
-    params = seeded_params(cfg, DEFAULT_HEADS, seed=4)
+    params = SEEDED[kind](cfg, DEFAULT_HEADS, seed=4)
     stats = {t: {"mu": 0.3, "sigma": 1.7} for t in DEFAULT_HEADS}
     kw.setdefault("max_batch", 16)
-    return CostModelService("conv1d", cfg, params, vocab, stats,
+    return CostModelService(kind, cfg, params, vocab, stats,
                             mode="ops", max_seq=256, device=device, **kw)
 
 
-def test_service_on_card_matches_cpu(cuda, corpus):
+@pytest.mark.parametrize("kind", ["conv1d", "lstm"])
+def test_service_on_card_matches_cpu(cuda, corpus, kind):
     graphs, vocab = corpus
-    want = _service(vocab, "cpu").predict_all(graphs)
-    before = K.conv_forward_fused.launches
-    got = _service(vocab, None, use_kernel=True).predict_all(graphs)
-    assert K.conv_forward_fused.launches > before
+    want = _service(vocab, "cpu", kind).predict_all(graphs)
+    before = KERNEL[kind].launches
+    got = _service(vocab, None, kind, use_kernel=True).predict_all(graphs)
+    assert KERNEL[kind].launches > before
     for t in DEFAULT_HEADS:
         np.testing.assert_allclose(got[t], want[t], rtol=TOL, atol=TOL)
-    b16 = _service(vocab, None, use_kernel=True,
+    b16 = _service(vocab, None, kind, use_kernel=True,
                    dtype="bf16").predict_all(graphs)
     for t in DEFAULT_HEADS:
         r_a = np.argsort(np.argsort(want[t]))
@@ -191,12 +354,14 @@ def test_service_on_card_matches_cpu(cuda, corpus):
         assert np.corrcoef(r_a, r_b)[0, 1] >= 0.99, t
 
 
-def test_server_bit_identical_to_direct_on_card(cuda, corpus):
+@pytest.mark.parametrize("kind", ["conv1d", "lstm"])
+def test_server_bit_identical_to_direct_on_card(cuda, corpus, kind):
     """Coalesced server batches reproduce direct predict_all bit for bit:
-    each row is computed by its own thread block."""
+    each row is computed by its own thread block (the LSTM's projection
+    is a gather and its heads run in the kernel)."""
     graphs, vocab = corpus
-    want = _service(vocab, None, use_kernel=True).predict_all(graphs)
-    served = _service(vocab, None, use_kernel=True)
+    want = _service(vocab, None, kind, use_kernel=True).predict_all(graphs)
+    served = _service(vocab, None, kind, use_kernel=True)
     results, lock = {}, threading.Lock()
     with CostModelServer(served, max_batch=16, flush_us=1000) as server:
         def client(idxs):

@@ -48,7 +48,7 @@ def test_port_imports_with_jax_and_reference_blocked():
                           capture_output=True, text=True, env=env,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 18   # every module imported
+    assert int(proc.stdout.split()[-1]) >= 19   # every module imported
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -72,15 +72,16 @@ def test_service_defaults_to_the_card():
     from repro_torch.core import tokenizer as TOK
     from repro_torch.core.models import DEFAULT_HEADS
     from repro_torch.core.service import CostModelService
-    params = P.conv_init(COSTMODEL_SMALL, DEFAULT_HEADS,
-                         generator=torch.Generator().manual_seed(0))
     stats = {t: {"mu": 0.0, "sigma": 1.0} for t in DEFAULT_HEADS}
     vocab = TOK.fit_vocab([["a", "b"]], max_size=16)
-    for kw in ({}, {"device": None}, {"device": "cuda"},
-               {"use_kernel": True}):
-        with pytest.raises(RuntimeError, match="cuda.is_available"):
-            CostModelService("conv1d", COSTMODEL_SMALL, params, vocab,
-                             stats, **kw)
+    for kind, init in (("conv1d", P.conv_init), ("lstm", P.lstm_init)):
+        params = init(COSTMODEL_SMALL, DEFAULT_HEADS,
+                      generator=torch.Generator().manual_seed(0))
+        for kw in ({}, {"device": None}, {"device": "cuda"},
+                   {"use_kernel": True}):
+            with pytest.raises(RuntimeError, match="cuda.is_available"):
+                CostModelService(kind, COSTMODEL_SMALL, params, vocab,
+                                 stats, **kw)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -16,16 +16,24 @@ from repro.configs.costmodel import COSTMODEL_SMALL, CostModelConfig
 from repro.core import models as RM
 from repro.kernels import ops as R_OPS
 from repro.kernels import ref as R_REF
+from repro.kernels.conv1d_stack import conv1d_stack_fused as r_tower
+from repro.kernels.lstm_scan import lstm_scan_fused as r_lstm_scan
 from repro_torch import params as P
 from repro_torch.configs import costmodel as T_CFG
 from repro_torch.kernels import _build
 from repro_torch.kernels import conv1d_stack as K
+from repro_torch.kernels import lstm_scan as K2
 from repro_torch.kernels import ops as T_OPS
 from repro_torch.kernels import ref as T_REF
 
 FILTERS = [(2, 2, 2), (16, 16, 8, 8, 2, 1), (3, 5), (1,)]
+# the reference's tower test shapes (B, S, C), tests/test_kernels.py
+SHAPES = [(1, 16, 8), (4, 32, 16), (5, 64, 32), (8, 128, 64)]
 # float32 with another accumulation order than the reference kernel's
 TOL = 2e-4
+# a bf16 output is the float32 result rounded to nearest: two float32
+# results 2e-4 apart may round one bf16 step (2^-7 relative) apart
+BF16_RTOL = 2.0 ** -7
 
 
 def conv_cfg(fs_list):
@@ -161,13 +169,18 @@ def test_wrapper_check_ids_false_skips_the_range_check():
 
 
 def test_kernel_kinds_and_dispatch():
+    """forward_apply sends conv1d to the fused conv forward and lstm to
+    the LSTM forward; a kind without a kernel raises ValueError."""
     assert T_OPS.KERNEL_KINDS == R_OPS.KERNEL_KINDS
     pt = P.from_numpy(ref_params(COSTMODEL_SMALL, None), "cpu")
-    with pytest.raises(NotImplementedError, match="LSTM"):
-        T_OPS.forward_apply("lstm", pt, _ids())
     with pytest.raises(ValueError, match="conv1d"):
         T_OPS.forward_apply("fc", pt, _ids())
     assert T_OPS.forward_apply("conv1d", pt, _ids()).shape == (3,)
+    lt = P.from_numpy(lstm_ref_params(None), "cpu")
+    before = K2.lstm_scan_fused.launches
+    out = T_OPS.forward_apply("lstm", lt, _ids())
+    assert out.shape == (3,) and out.dtype == torch.float32
+    assert K2.lstm_scan_fused.launches == before        # plain on the CPU
 
 
 def test_fused_forward_bytes_matches_reference():
@@ -196,3 +209,255 @@ def test_build_dir_is_the_checkout_or_named(monkeypatch, tmp_path):
     assert _build._build_dir() == root / "build" / "repro_torch_kernels"
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     assert _build._build_dir() == tmp_path
+
+
+# ------------------------------------------------------ LSTM recurrence
+def lstm_ref_params(heads, seed=11):
+    """Reference LSTM params (numpy), embedding x20 so the gates reach
+    unit size, gate bias and head biases drawn nonzero."""
+    p = jax.tree.map(np.asarray, RM.lstm_init(jax.random.PRNGKey(seed),
+                                              COSTMODEL_SMALL, heads=heads))
+    p["emb"] = p["emb"] * np.float32(20.0)
+    rng = np.random.default_rng(seed)
+    p["b"] = (rng.normal(size=p["b"].shape) * 0.1).astype(np.float32)
+    for lyr in (p["heads"].values() if heads else [p["head"]]):
+        lyr["b"] = (rng.normal(size=lyr["b"].shape) * 0.1).astype(
+            np.float32)
+    return p
+
+
+def _scan_inputs(shape):
+    """The reference test's inputs: random mask, one fully masked row."""
+    B, S, H = shape
+    rng = np.random.default_rng(B * 1000 + S + H)
+    xw = (rng.normal(size=(B, S, 4 * H)) * 0.5).astype(np.float32)
+    mask = (rng.random((B, S)) < 0.8).astype(np.float32)
+    mask[0] = 0.0
+    wh = (rng.normal(size=(H, 4 * H)) * 0.3).astype(np.float32)
+    return xw, mask, wh
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 8), (5, 32, 16), (8, 64, 16)])
+def test_lstm_scan_matches_reference_kernel(shape):
+    """Port lstm_scan_fused (plain path on the CPU) vs the reference
+    Pallas kernel in interpret mode and the reference oracle, within the
+    reference test's 1e-5; the fully masked row is exactly 0."""
+    xw, mask, wh = _scan_inputs(shape)
+    got = K2.lstm_scan_fused(torch.from_numpy(xw), torch.from_numpy(mask),
+                             torch.from_numpy(wh))
+    assert got.dtype == torch.float32 and got.shape == (shape[0], shape[2])
+    kern = r_lstm_scan(jnp.asarray(xw), jnp.asarray(mask), jnp.asarray(wh),
+                       bblk=4, interpret=True)
+    oracle = R_REF.lstm_scan_ref(jnp.asarray(xw), jnp.asarray(mask),
+                                 jnp.asarray(wh))
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=1e-5,
+                               atol=1e-5)
+    assert not got[0].any()
+
+
+def test_lstm_scan_heads_are_the_stacked_matmul():
+    """With stacked heads the wrapper returns h @ head_w + head_b of the
+    same recurrence (one launch on the card)."""
+    xw, mask, wh = (torch.from_numpy(a) for a in _scan_inputs((5, 32, 16)))
+    rng = np.random.default_rng(4)
+    hw = torch.from_numpy(rng.normal(size=(16, 3)).astype(np.float32))
+    hb = torch.from_numpy(rng.normal(size=(3,)).astype(np.float32))
+    h = K2.lstm_scan_fused(xw, mask, wh)
+    got = K2.lstm_scan_fused(xw, mask, wh, hw, hb)
+    torch.testing.assert_close(got, h @ hw + hb, rtol=1e-6, atol=1e-6)
+    assert not (got[0] - hb).any()              # all-PAD row: h == 0
+
+
+@pytest.mark.parametrize("heads", [None, RM.DEFAULT_HEADS])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_lstm_forward_apply_matches_reference_kernel(heads, dtype):
+    """Port lstm_forward_apply (plain path on the CPU) vs the reference's
+    lstm_forward_apply with its Pallas kernel in interpret mode, ragged
+    ids and one all-PAD row. Both compute the recurrence in float32 from
+    the same projection, so bf16 params are held to 2e-4 as well."""
+    pn = lstm_ref_params(heads)
+    ids = ragged_ids(np.random.default_rng(17), 7, 64,
+                     COSTMODEL_SMALL.vocab_size)
+    rp = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), pn) \
+        if dtype == "bf16" else pn
+    tp = P.from_numpy(pn, "cpu",
+                      torch.bfloat16 if dtype == "bf16" else None)
+    got = T_OPS.lstm_forward_apply(tp, torch.from_numpy(ids))
+    kern = R_OPS.lstm_forward_apply(rp, jnp.asarray(ids), interpret=True)
+    names = tuple(pn["heads"]) if heads else None
+    got = as_np({t: v.numpy() for t, v in got.items()} if heads
+                else got.numpy(), names)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, as_np(kern, names), rtol=TOL, atol=TOL)
+
+
+def test_lstm_forward_apply_gathers_a_precomputed_table():
+    """params["xw_table"] (the service precomputes it) gives the same
+    predictions as the table computed per call, which equals the
+    per-position projection emb[ids] @ wx + b."""
+    pt = P.from_numpy(lstm_ref_params(RM.DEFAULT_HEADS), "cpu")
+    ids = _ids(B=4, S=32)
+    table = T_OPS.lstm_xw_table(pt)
+    torch.testing.assert_close(table[ids],
+                               pt["emb"][ids] @ pt["wx"] + pt["b"])
+    a = T_OPS.lstm_forward_apply(pt, ids)
+    b = T_OPS.lstm_forward_apply(dict(pt, xw_table=table), ids)
+    for t in RM.DEFAULT_HEADS:
+        assert torch.equal(a[t], b[t])
+
+
+def _scan_args():
+    return [torch.from_numpy(a) for a in _scan_inputs((3, 8, 4))]
+
+
+@pytest.mark.parametrize("case", ["wrong_dtype", "mixed_dtype", "bad_4h",
+                                  "bad_wh", "noncontig", "two_devices",
+                                  "mask_dtype", "mask_shape", "half_heads",
+                                  "bad_heads", "mixed_heads"])
+def test_lstm_wrapper_rejects_bad_input(case):
+    xw, mask, wh = _scan_args()
+    heads = ()
+    if case == "wrong_dtype":
+        xw, wh = xw.half(), wh.half()
+    elif case == "mixed_dtype":
+        wh = wh.to(torch.bfloat16)
+    elif case == "bad_4h":
+        xw = xw[..., :12].contiguous()
+    elif case == "bad_wh":
+        wh = wh[:3].contiguous()
+    elif case == "noncontig":
+        xw = xw.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "two_devices":
+        wh = wh.to("meta")
+    elif case == "mask_dtype":
+        mask = mask.bool()
+    elif case == "mask_shape":
+        mask = mask[:, :4].contiguous()
+    elif case == "half_heads":
+        heads = (torch.zeros(4, 2),)
+    elif case == "bad_heads":
+        heads = (torch.zeros(5, 2), torch.zeros(2))
+    elif case == "mixed_heads":
+        heads = (torch.zeros(4, 2).to(torch.bfloat16), torch.zeros(2))
+    with pytest.raises(ValueError):
+        K2.lstm_scan_fused(xw, mask, wh, *heads)
+
+
+def test_lstm_wrapper_plain_path_on_cpu_counts_no_launch():
+    before = K2.lstm_scan_fused.launches
+    out = K2.lstm_scan_fused(*_scan_args())
+    assert out.shape == (3, 4) and out.dtype == torch.float32
+    assert K2.lstm_scan_fused.launches == before
+
+
+# ------------------------------------------------------- tower (masked)
+def _tower_inputs(rng, B, S, C, fs_list):
+    """The reference test's inputs (random x at every position, random
+    mask with position 0 valid), biases drawn nonzero, row 0 masked."""
+    x = rng.normal(size=(B, S, C)).astype(np.float32)
+    mask = (rng.random((B, S)) < 0.85).astype(np.float32)
+    mask[:, 0] = 1.0
+    mask[0] = 0.0
+    ws, bs, cin = [], [], C
+    for fs in fs_list:
+        ws.append((rng.normal(size=(fs, cin, C)) * 0.2).astype(np.float32))
+        bs.append((rng.normal(size=(C,)) * 0.1).astype(np.float32))
+    return x, ws, bs, mask
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("fs_list", FILTERS)
+def test_conv1d_stack_matches_reference_kernel(fs_list, shape, dtype):
+    """Port conv1d_stack_fused (plain path on the CPU) vs the reference
+    Pallas tower kernel in interpret mode: the same float32 arithmetic,
+    the output in x's dtype (bf16: within one bf16 step); the all-masked
+    row pools to exactly 0."""
+    rng = np.random.default_rng(shape[0] * 100 + len(fs_list))
+    x, ws, bs, mask = _tower_inputs(rng, *shape, fs_list)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = r_tower(jnp.asarray(x, jdt), [jnp.asarray(w, jdt) for w in ws],
+                   [jnp.asarray(b, jdt) for b in bs], jnp.asarray(mask),
+                   bblk=4, interpret=True)
+    got = K.conv1d_stack_fused(torch.from_numpy(x).to(tdt),
+                               [torch.from_numpy(w).to(tdt) for w in ws],
+                               [torch.from_numpy(b).to(tdt) for b in bs],
+                               torch.from_numpy(mask))
+    assert got.dtype == tdt and got.shape == (shape[0], shape[2])
+    rtol = TOL if dtype == "f32" else BF16_RTOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=rtol,
+                               atol=TOL)
+    assert not got[0].any()
+
+
+def _tower_params(heads):
+    return ref_params(conv_cfg((3, 5)), heads, emb_scale=20.0)
+
+
+@pytest.mark.parametrize("heads", [None, RM.DEFAULT_HEADS])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_conv_tower_apply_matches_reference(heads, use_kernel):
+    """Port conv_tower_apply vs the reference's (its Pallas tower in
+    interpret mode, or its plain tower), with nonzero biases, ragged ids
+    and one all-PAD row. Both pool over valid positions only, which is
+    not conv_apply's pool: the test also asserts that with these biases
+    an unmasked pool would give other features, so the check can fail."""
+    pn = _tower_params(heads)
+    ids = ragged_ids(np.random.default_rng(5), 6, 32, 128)
+    pt = P.from_numpy(pn, "cpu")
+    got = T_OPS.conv_tower_apply(pt, torch.from_numpy(ids),
+                                 use_kernel=use_kernel)
+    want = R_OPS.conv_tower_apply(pn, jnp.asarray(ids),
+                                  use_kernel=use_kernel, interpret=True)
+    names = tuple(pn["heads"]) if heads else None
+    got = as_np({t: v.numpy() for t, v in got.items()} if heads
+                else got.numpy(), names)
+    np.testing.assert_allclose(got, as_np(want, names), rtol=TOL, atol=TOL)
+    unmasked = RM.conv_apply(pn, jnp.asarray(ids))
+    assert np.abs(got - as_np(unmasked, names)).max() > 10 * TOL
+
+
+def _tower_args():
+    rng = np.random.default_rng(0)
+    x, ws, bs, mask = _tower_inputs(rng, 3, 16, 8, (2, 3))
+    return (torch.from_numpy(x), [torch.from_numpy(w) for w in ws],
+            [torch.from_numpy(b) for b in bs], torch.from_numpy(mask))
+
+
+@pytest.mark.parametrize("case", ["mixed_dtype", "wrong_dtype", "noncontig",
+                                  "two_devices", "bad_chain", "no_layers",
+                                  "mask_dtype", "two_dim"])
+def test_tower_wrapper_rejects_bad_input(case):
+    x, ws, bs, mask = _tower_args()
+    if case == "mixed_dtype":
+        ws = [ws[0].to(torch.bfloat16), ws[1]]
+    elif case == "wrong_dtype":
+        x, ws, bs = x.half(), [w.half() for w in ws], [b.half() for b in bs]
+    elif case == "noncontig":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "two_devices":
+        mask = mask.to("meta")
+    elif case == "bad_chain":
+        ws = [ws[0], ws[1][:, :4].contiguous()]
+    elif case == "no_layers":
+        ws, bs = [], []
+    elif case == "mask_dtype":
+        mask = mask.bool()
+    elif case == "two_dim":
+        x = x[0]
+    with pytest.raises(ValueError):
+        K.conv1d_stack_fused(x, ws, bs, mask)
+
+
+def test_tower_wrapper_plain_path_on_cpu_counts_no_launch():
+    before = K.conv1d_stack_fused.launches
+    x, ws, bs, mask = _tower_args()
+    for dt in (torch.float32, torch.bfloat16):
+        out = K.conv1d_stack_fused(x.to(dt), [w.to(dt) for w in ws],
+                                   [b.to(dt) for b in bs], mask)
+        assert out.shape == (3, 8) and out.dtype == dt
+    assert K.conv1d_stack_fused.launches == before

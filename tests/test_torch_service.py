@@ -138,10 +138,11 @@ def test_guards(world):
                                svc.norm_stats, use_kernel=True,
                                device="cpu")
     assert str(T_OPS.KERNEL_KINDS) in str(e.value)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T_SVC.CostModelService("lstm", CFG, svc.params, svc.vocab,
+    with pytest.raises(ValueError, match="no kernel") as e:
+        T_SVC.CostModelService("xformer", CFG, svc.params, svc.vocab,
                                svc.norm_stats, use_kernel=True,
                                device="cpu")
+    assert str(T_OPS.KERNEL_KINDS) in str(e.value)
     with pytest.raises(ValueError, match="dtype"):
         world["make"](dtype="fp8")
     with pytest.raises(ValueError, match="multi-target"):
@@ -188,6 +189,91 @@ def test_server_threads_answer_like_direct(world):
     assert set(results) == set(range(len(graphs)))
     assert snap["cache_hits"] + snap["coalesced"] >= len(graphs)
     assert snap["requests"] == 2 * len(graphs)
+    for i in range(len(graphs)):
+        for t in RM.DEFAULT_HEADS:
+            np.testing.assert_allclose(results[i][t][0], direct[t][i],
+                                       rtol=TOL, atol=TOL)
+
+
+# ------------------------------------------------------------------ LSTM
+@pytest.fixture(scope="module")
+def lstm_world(world):
+    """The world's graphs and vocab, reference LSTM params (embedding x20,
+    gate and head biases nonzero) and the reference LSTM service's f32
+    predictions."""
+    params = RM.lstm_init(jax.random.PRNGKey(1), CFG, heads=RM.DEFAULT_HEADS)
+    params["emb"] = params["emb"] * 20.0
+    b_rng = np.random.default_rng(1)             # lstm_init zeroes biases
+    params["b"] = (b_rng.normal(size=params["b"].shape) * 0.1).astype(
+        np.float32)
+    for lyr in params["heads"].values():
+        lyr["b"] = (b_rng.normal(size=lyr["b"].shape) * 0.1).astype(
+            np.float32)
+    ref = world["ref"]
+    r_rng = np.random.default_rng(7)              # the world's graphs
+    r_graphs = [R_SMP.sample_graph(r_rng) for _ in range(40)]
+    want = R_SVC.CostModelService(
+        "lstm", CFG, params, ref.vocab, ref.norm_stats, mode="ops",
+        max_seq=64, max_batch=8).predict_all(r_graphs)
+    pn = jax.tree.map(np.asarray, params)
+    vocab = world["make"]().vocab
+
+    def make(**kw):
+        kw.setdefault("max_batch", 8)
+        kw.setdefault("device", "cpu")
+        return T_SVC.CostModelService("lstm", CFG, pn, vocab,
+                                      ref.norm_stats, mode="ops",
+                                      max_seq=64, **kw)
+    return {"graphs": world["graphs"], "want": want, "make": make}
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_lstm_predict_all_matches_reference(lstm_world, use_kernel):
+    """The LSTM service, plain or through the fused forward (its plain
+    versions on the CPU), against the reference service on the same
+    params, vocab and graphs."""
+    svc = lstm_world["make"](use_kernel=use_kernel)
+    _close(svc.predict_all(lstm_world["graphs"]), lstm_world["want"])
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_lstm_bf16_keeps_rank_order(lstm_world, use_kernel):
+    svc = lstm_world["make"](use_kernel=use_kernel, dtype="bf16")
+    got = svc.predict_all(lstm_world["graphs"])
+    for t in RM.DEFAULT_HEADS:
+        assert got[t].dtype == np.float32
+        assert spearman(lstm_world["want"][t], got[t]) >= 0.99, t
+
+
+def test_lstm_service_precomputes_the_projection_table(lstm_world):
+    """use_kernel builds the (V, 4H) table of emb @ wx + b once; warmup
+    runs every shape through it."""
+    svc = lstm_world["make"](use_kernel=True)
+    assert svc.warmup() == len(svc.buckets) * len(svc.batch_ladder)
+    plain = lstm_world["make"]()
+    assert svc.batch_ladder == plain.batch_ladder
+    assert T_SVC.pad_slack("lstm", CFG) == R_SVC.pad_slack("lstm", CFG) == 0
+
+
+def test_lstm_server_threads_answer_like_direct(lstm_world):
+    graphs = lstm_world["graphs"]
+    direct = lstm_world["make"](use_kernel=True).predict_all(graphs)
+    served = lstm_world["make"](use_kernel=True)
+    results, lock = {}, threading.Lock()
+    with CostModelServer(served, max_batch=8, flush_us=1000) as server:
+        def client(k):
+            for i in range(k, len(graphs), 4):
+                out = server.predict_all([graphs[i]])
+                with lock:
+                    results[i] = out
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    assert set(results) == set(range(len(graphs)))
     for i in range(len(graphs)):
         for t in RM.DEFAULT_HEADS:
             np.testing.assert_allclose(results[i][t][0], direct[t][i],

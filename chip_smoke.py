@@ -21,8 +21,10 @@ Phases, each printing JSON lines:
    are drawn from a seed with every bias nonzero and the embedding
    scaled so the limit is tight, and the phase checks that the plain
    version with any group of biases zeroed misses the limit, so the
-   parity checks can fail. Times the kernel and the plain version with
-   CUDA events, and reports how far a TF32 plain version lands.
+   parity checks can fail. The ladder check moves each row one position
+   in its batch, so B=1 holds a real row. Times the kernel and the plain
+   version with CUDA events, and reports how far a TF32 plain version
+   lands.
 4. ``serve``   — the Conv1D main path: ``build_dataset`` (300 graphs),
    random COSTMODEL_BASE multi-head params from a seed, a
    ``CostModelService(use_kernel=True)`` on the card behind a
@@ -32,18 +34,27 @@ Phases, each printing JSON lines:
    forward of the same ids and a direct ``predict_all`` bit for bit, and
    that the LRU answered.
 5. ``kernels_lstm`` — the LSTM recurrence kernel (K2) against its plain
-   version: the reference's test shapes, COSTMODEL_BASE (H=128) at S in
-   {32, 256}, B in {1, 5, 64}, f32 and bf16, ragged masks, one all-PAD
-   row that must come out exactly 0; plain versions with the forget-gate
-   +1 dropped, the gate bias zeroed or the mask ignored must miss by more
-   than 10x the limit; bf16 vs f32 params keep each head's ranking; rows
-   bit-identical across the ladder, for the kernel and for
-   ``lstm_forward_apply`` with its projection. Times the kernel, its
-   plain version, and cuDNN's LSTM (``torch.nn.LSTM`` on packed prefix
-   sequences, the yardstick ``library_ms``) against the projection plus
-   the kernel.
+   version through both entries (``lstm_scan_fused`` on gates and a
+   mask, ``lstm_scan_ids`` on the projection table and ids, which must
+   agree bit for bit): the reference's test shapes; H in {8, 16, 33, 64,
+   65, 119, 120, 128} (both plans, odd H, a warp of idle lanes) at B in
+   {0, 1, 5, 64, 256}, with
+   stacked heads; COSTMODEL_BASE (H=128) through its projection at S in
+   {32, 256}, B in {1, 5, 64}; f32 and bf16, ragged masks, one all-PAD
+   row that must come out exactly 0; an id outside the table reads as
+   PAD; plain versions with the forget-gate +1 dropped, the gate bias
+   zeroed, the mask ignored or each block's units blind to the peer's
+   half of h must miss by more than 10x the limit; bf16 vs f32 params
+   keep each head's ranking; rows bit-identical across the ladder for
+   both entries and for ``lstm_forward_apply``. Times the ids entry
+   beside its plain version (``ms``, as K2 has been timed since it was
+   ported), the two entries beside each other, and the served forward
+   beside cuDNN's LSTM (``torch.nn.LSTM`` on packed prefix sequences,
+   the yardstick ``library_ms``).
 6. ``serve_lstm`` — the LSTM main path: the serve phase's dataset,
-   requests and checks with ``CostModelService("lstm", use_kernel=True)``.
+   requests and checks with ``CostModelService("lstm", use_kernel=True)``;
+   every served batch is one launch of the ids entry, and the xw entry
+   never runs.
 7. ``tower``   — the tower kernel (K3, masked max-pool) against
    ``conv1d_stack_ref(mask)``, and ``conv_tower_apply(use_kernel=True)``
    against the plain tower path: COSTMODEL_BASE and COSTMODEL_OPERAND
@@ -328,17 +339,18 @@ def phase_kernels() -> dict:
     check(min(rho) >= SPEARMAN_MIN, f"bf16 Spearman {rho}")
     emit({"phase": "kernels", "case": "bf16_spearman", "spearman": rho})
 
-    # each row is bit-identical for every batch size of the ladder
-    ladder = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+    # each row is bit-identical for every batch size of the ladder, at
+    # another position in its batch (row 0 of the full batch is all PAD,
+    # so B=1 holds a real row)
     for S in (32, 256):
-        ids = torch.from_numpy(ragged_ids(rng, 64, S, 8192)).to(dev)
+        ids = torch.from_numpy(ragged_ids(rng, 65, S, 8192)).to(dev)
         full = K.conv_forward_fused(ids, *a32)
-        same = all(torch.equal(K.conv_forward_fused(ids[:b].contiguous(),
-                                                    *a32), full[:b])
-                   for b in ladder)
+        same = all(torch.equal(K.conv_forward_fused(
+            ids[1:b + 1].contiguous(), *a32), full[1:b + 1])
+            for b in LADDER)
         check(same, f"rows bit-identical across the batch ladder, S={S}")
         emit({"phase": "kernels", "case": "bit_identity", "S": S,
-              "ladder": list(ladder), "identical": same})
+              "ladder": list(LADDER), "identical": same})
 
     # times at the main path's widths, kernel and plain version in turns
     timings = {}
@@ -362,18 +374,38 @@ def phase_kernels() -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
-def lstm_bound_ms(xw, mask, wh) -> tuple:
-    """Least time the card could take for one recurrence on these inputs:
-    operations and bytes of the valid steps only (a masked step does no
-    work and reads no xw), plus the mask, wh and the output."""
-    steps = float(mask.sum())
+def lstm_bound_ms(ids, table, wh, n_heads: int) -> tuple:
+    """Least time the card could take for one recurrence of the ids
+    entry on these inputs: operations of the valid steps only (a PAD step
+    does no work) and the heads; bytes of the ids, the table rows these
+    ids need, wh, the heads and the output, each once."""
+    import torch
+    valid = ids[(ids > 0) & (ids < table.shape[0])]
     H = wh.shape[0]
-    flops = steps * 2 * H * 4 * H
-    nbytes = steps * 4 * H * xw.element_size() + mask.numel() * 4 \
-        + wh.numel() * wh.element_size() + xw.shape[0] * H * 4
+    flops = float(valid.numel()) * 2 * H * 4 * H + ids.shape[0] * 2 * H * \
+        n_heads
+    nbytes = ids.numel() * 4 + int(torch.unique(valid).numel()) * 4 * H * \
+        table.element_size() + wh.numel() * wh.element_size() + \
+        (H + 1) * n_heads * wh.element_size() + ids.shape[0] * n_heads * 4
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def scan_inputs(rng, B: int, S: int, H: int, V: int, dtype, dev):
+    """A (V, 4H) gate table, ids with ragged valid lengths (row 0 all PAD
+    when B > 1), the gates and mask they give the xw entry, and wh (the
+    reference test's 0.3 scale for H <= 16, else 1/sqrt(H))."""
+    import numpy as np
+    import torch
+    table = torch.tensor(rng.normal(size=(V, 4 * H)) * 0.5, dtype=dtype,
+                         device=dev)
+    ids = torch.from_numpy(mixed_ids(rng, B, S, V) if B else
+                           np.zeros((0, S), np.int32)).to(dev)
+    scale = 0.3 if H <= 16 else H ** -0.5
+    wh = torch.tensor(rng.normal(size=(H, 4 * H)) * scale, dtype=dtype,
+                      device=dev)
+    return table, ids, table[ids].contiguous(), (ids != 0).float(), wh
 
 
 def phase_kernels_lstm() -> dict:
@@ -414,6 +446,42 @@ def phase_kernels_lstm() -> dict:
         emit({"phase": "kernels_lstm", "case": label, **info,
               "max_abs_err": err, "limit": limit})
 
+    def compare_entries(table, ids, xw, mask, wh, limit, label, **info):
+        """Both entries against their plain versions, bit for bit against
+        each other, with the stacked heads too; the all-PAD row 0."""
+        nonlocal max_err
+        B, H = ids.shape[0], wh.shape[0]
+        hw = torch.tensor(rng.normal(size=(H, 3)) * H ** -0.5,
+                          dtype=wh.dtype, device=dev)
+        hb = torch.tensor(rng.normal(size=(3,)) * 0.1, dtype=wh.dtype,
+                          device=dev)
+        n_ids, n_xw = K2.lstm_scan_ids.launches, K2.lstm_scan_fused.launches
+        got = K2.lstm_scan_ids(table, ids, wh)
+        got_xw = K2.lstm_scan_fused(xw, mask, wh)
+        pred = K2.lstm_scan_ids(table, ids, wh, hw, hb)
+        pred_xw = K2.lstm_scan_fused(xw, mask, wh, hw, hb)
+        want = REF.lstm_scan_ids_ref(table, ids, wh)
+        want_pred = REF.lstm_scan_ids_ref(table, ids, wh, hw, hb)
+        torch.cuda.synchronize()
+        check(got.shape == (B, H) and pred.shape == (B, 3),
+              f"{label} {info} shapes")
+        check(K2.lstm_scan_ids.launches - n_ids == 2 * (B > 0) and
+              K2.lstm_scan_fused.launches - n_xw == 2 * (B > 0),
+              f"{label} {info}: one launch a call, none at B=0")
+        err = float((got - want).abs().max()) if B else 0.0
+        err_pred = float((pred - want_pred).abs().max()) if B else 0.0
+        check(bool(torch.isfinite(got).all()), f"{label} {info} finite")
+        check(max(err, err_pred) <= limit,
+              f"{label} {info} err {err} / heads {err_pred} > {limit}")
+        check(torch.equal(got, got_xw) and torch.equal(pred, pred_xw),
+              f"{label} {info}: the two entries differ")
+        if B > 1:
+            check(not got[0].any(), f"{label} {info}: all-PAD row not 0")
+        max_err = max(max_err, err, err_pred)
+        return {"case": label, **info, "max_abs_err": err,
+                "heads_max_abs_err": err_pred, "limit": limit,
+                "entries_identical": True}
+
     # the reference's test shapes and inputs: random masks, row 0 masked
     # (but for B=1)
     for B, S, H in ((1, 16, 8), (5, 32, 16), (8, 64, 16)):
@@ -428,6 +496,34 @@ def phase_kernels_lstm() -> dict:
             compare(torch.tensor(xw, dtype=dt, device=dev), mask,
                     torch.tensor(wh, dtype=dt, device=dev), limit,
                     "reference_shape", B=B, S=S, H=H, dtype=str(dt))
+            # the ids entry on the same mask: a table row for each valid
+            # step, PAD elsewhere
+            V = 97
+            table = torch.tensor(rng.normal(size=(V, 4 * H)) * 0.5,
+                                 dtype=dt, device=dev)
+            ids = torch.from_numpy((rng.integers(1, V, (B, S)) * m)
+                                   .astype(np.int32)).to(dev)
+            emit({"phase": "kernels_lstm", **compare_entries(
+                table, ids, table[ids].contiguous(), (ids != 0).float(),
+                torch.tensor(wh, dtype=dt, device=dev), limit,
+                "reference_shape_entries", B=B, S=S, H=H, dtype=str(dt))})
+    # the two plans and both sides of each edge (odd H, the one-block
+    # limit 64, the earlier kernel's shared-memory limit 119/120,
+    # kMaxHidden; at H=65 block 1 has a whole warp of idle lanes), every
+    # batch size from none to the service's max_batch (several waves)
+    plans = {}
+    for H in (8, 16, 33, 64, 65, 119, 120, 128):
+        plans[H] = K2.plan(H)
+        for B in (0, 1, 5, 64, 256):
+            for dt in (torch.float32, torch.bfloat16):
+                limit = TOL_LSTM_SMALL if H <= 16 and \
+                    dt == torch.float32 else TOL
+                args = scan_inputs(rng, B, 48, H, 300, dt, dev)
+                emit({"phase": "kernels_lstm", **compare_entries(
+                    *args, limit, "grid", B=B, S=48, H=H, dtype=str(dt))})
+    emit({"phase": "kernels_lstm", "case": "plans", "plans": plans})
+    check(plans[128]["ctas"] == 2 and plans[64]["ctas"] == 1,
+          f"plans {plans}")
     # COSTMODEL_BASE through its projection: ragged prefix masks
     for dt in (torch.float32, torch.bfloat16):
         p = params_for(dt)
@@ -438,8 +534,8 @@ def phase_kernels_lstm() -> dict:
                 xw, mask = project(p, ids)
                 compare(xw, mask, p["wh"], TOL, "base", B=B, S=S,
                         H=cfg.lstm_hidden, dtype=str(dt))
-    # the slice as a whole, both head layouts: lstm_forward_apply against
-    # the plain model
+    # the slice as a whole, both head layouts: lstm_forward_apply (the ids
+    # entry) against the plain model
     for hs in (heads, None):
         p = params_for(hs=hs)
         ids = torch.from_numpy(ragged_ids(rng, 64, 256,
@@ -455,20 +551,41 @@ def phase_kernels_lstm() -> dict:
               "heads": len(hs or (0,)), "max_abs_err": err,
               "out_abs_max": float(got.abs().max())})
 
-    # the limit can fail: the plain version without the forget-gate +1,
-    # with the gate bias zeroed, or ignoring the mask misses the kernel
+    # an id outside the table reads as PAD: never read, its step skipped
     p32 = params_for()
     H = cfg.lstm_hidden
+    table = ops.lstm_xw_table(p32)
+    ids = torch.from_numpy(long_ids(rng, 4, 64, cfg.vocab_size)).to(dev)
+    bad = ids.clone()
+    for r, (pos, v) in enumerate(((0, -1), (5, cfg.vocab_size),
+                                  (63, 1 << 30), (17, -(1 << 30)))):
+        bad[r, pos] = v
+    pad = torch.where((bad >= 0) & (bad < cfg.vocab_size), bad,
+                      torch.zeros_like(bad))
+    same = torch.equal(K2.lstm_scan_ids(table, bad, p32["wh"]),
+                       K2.lstm_scan_ids(table, pad, p32["wh"]))
+    check(same, "an out-of-range id reads as PAD")
+    check(not torch.equal(pad, ids), "the out-of-range ids replaced ids")
+    emit({"phase": "kernels_lstm", "case": "out_of_range_id_as_pad",
+          "identical": same})
+
+    # the limit can fail: the plain version without the forget-gate +1,
+    # with the gate bias zeroed, ignoring the mask, or with each block's
+    # units blind to the other block's half of h misses the kernel
     ids = torch.from_numpy(ragged_ids(rng, 64, 256, cfg.vocab_size)).to(dev)
     xw, mask = project(p32, ids)
     got = K2.lstm_scan_fused(xw, mask, p32["wh"])
     forget = torch.zeros(4 * H, device=dev)
     forget[H:2 * H] = 1.0
-    miss = {name: float((REF.lstm_scan_ref(a, m, p32["wh"]) - got)
-                        .abs().max())
-            for name, a, m in (("forget_bias_dropped", xw - forget, mask),
-                               ("gate_bias_zeroed", xw - p32["b"], mask),
-                               ("mask_ignored", xw, torch.ones_like(mask)))}
+    units = plans[H]["units"]
+    block = torch.arange(H, device=dev) // units       # block of a unit
+    own = block[:, None] == block.repeat(4)[None, :]   # (k, gate column)
+    miss = {name: float((REF.lstm_scan_ref(a, m, w) - got).abs().max())
+            for name, a, m, w in (
+                ("forget_bias_dropped", xw - forget, mask, p32["wh"]),
+                ("gate_bias_zeroed", xw - p32["b"], mask, p32["wh"]),
+                ("mask_ignored", xw, torch.ones_like(mask), p32["wh"]),
+                ("peer_half_of_h_zeroed", xw, mask, p32["wh"] * own))}
     for name, e in miss.items():
         check(e > 10 * TOL, f"plain version with {name} misses by only "
               f"{e}: the parity limit cannot catch it")
@@ -488,8 +605,8 @@ def phase_kernels_lstm() -> dict:
           "out_abs_max": float(np.abs(o32).max())})
 
     # each row is bit-identical for every batch size of the ladder, at
-    # another position in its batch: the kernel alone, and the forward
-    # with its projection and heads (row 0 of the full batch is all PAD)
+    # another position in its batch: both entries alone, and the forward
+    # with its table and heads (row 0 of the full batch is all PAD)
     ladder = {}
     for S in (32, 256):
         ids = torch.from_numpy(ragged_ids(rng, 65, S,
@@ -499,6 +616,10 @@ def phase_kernels_lstm() -> dict:
         ladder[f"kernel_S{S}"] = all(torch.equal(K2.lstm_scan_fused(
             xw[1:b + 1].contiguous(), mask[1:b + 1].contiguous(),
             p32["wh"]), full[1:b + 1]) for b in LADDER)
+        full = K2.lstm_scan_ids(table, ids, p32["wh"])
+        ladder[f"ids_kernel_S{S}"] = all(torch.equal(K2.lstm_scan_ids(
+            table, ids[1:b + 1].contiguous(), p32["wh"]), full[1:b + 1])
+            for b in LADDER)
         for name, p in (("f32", p32), ("bf16", p16)):
             full = forward(p, ids)
             ladder[f"forward_{name}_S{S}"] = all(torch.equal(
@@ -509,15 +630,24 @@ def phase_kernels_lstm() -> dict:
     for name, same in ladder.items():
         check(same, f"LSTM rows bit-identical across the ladder: {name}")
 
-    # times at the main path's widths: kernel and plain version in turns;
-    # the projection plus the kernel against cuDNN's LSTM on packed
-    # prefix sequences (the yardstick; the port never calls it)
+    # times at the main path's widths, each pair in turns: the ids entry
+    # (the main path's launch) and its plain version, 7 samples of 3
+    # launches (``ms`` and ``plain_ms``: K2's yardstick since it was
+    # ported); the two entries, 21 samples of 10; the served forward
+    # (ops.lstm_forward_apply on the service's precomputed table and
+    # heads) and cuDNN's LSTM on packed prefix sequences from embedded x
+    # (the yardstick; the port never calls it), 21 samples of 10
+    # (ids from a generator of their own, so that a check added above
+    # does not change what is timed)
     timings = {}
+    served = ops.lstm_serving_params(p32)
+    head_w, head_b, _ = served["stacked_heads"]
+    timing_rng = np.random.default_rng(20)
     for B in (64, 1):
-        ids = torch.from_numpy(long_ids(rng, B, 256, cfg.vocab_size)).to(dev)
+        ids = torch.from_numpy(long_ids(timing_rng, B, 256,
+                                        cfg.vocab_size)).to(dev)
         xw, mask = project(p32, ids)
         wh = p32["wh"]
-        x = p32["emb"][ids]
         lstm = torch.nn.LSTM(cfg.embed_dim, H, batch_first=True).to(dev)
         with torch.no_grad():
             lstm.weight_ih_l0.copy_(p32["wx"].T)
@@ -526,28 +656,36 @@ def phase_kernels_lstm() -> dict:
             lstm.bias_hh_l0.zero_()
         lstm.flatten_parameters()
         packed = torch.nn.utils.rnn.pack_padded_sequence(
-            x, mask.sum(1).long().cpu(), batch_first=True,
+            p32["emb"][ids], mask.sum(1).long().cpu(), batch_first=True,
             enforce_sorted=False)
         with torch.inference_mode():
-            k_ms, p_ms = time_pair(lambda: K2._launch(xw, mask, wh),
-                                   lambda: REF.lstm_scan_ref(xw, mask, wh),
-                                   n_samples=7, reps=3)
-            pk_ms, lib_ms = time_pair(
-                lambda: K2._launch(x @ p32["wx"] + p32["b"], mask, wh),
+            k_ms, p_ms = time_pair(
+                lambda: K2._launch_ids(table, ids, wh, head_w, head_b),
+                lambda: REF.lstm_scan_ids_ref(table, ids, wh, head_w,
+                                              head_b),
+                n_samples=7, reps=3)
+            ids_ms, xw_ms = time_pair(
+                lambda: K2._launch_ids(table, ids, wh, head_w, head_b),
+                lambda: K2._launch(xw, mask, wh, head_w, head_b))
+            f_ms, lib_ms = time_pair(
+                lambda: ops.lstm_forward_apply(served, ids, check_ids=False),
                 lambda: lstm(packed))
             lib_h = lstm(packed)[1][0][0]
-            lib_err = float((lib_h - K2._launch(xw, mask, wh)).abs().max())
+            lib_err = float((lib_h - K2._launch_ids(table, ids, wh))
+                            .abs().max())
         check(lib_err <= TOL, f"cuDNN LSTM yardstick computes another "
               f"function: err {lib_err}")
-        b_ms, by, flops, nbytes = lstm_bound_ms(xw, mask, wh)
+        b_ms, by, flops, nbytes = lstm_bound_ms(ids, table, wh,
+                                                head_w.shape[1])
         longest = int(mask.sum(1).max())
         timings[B] = {"B": B, "S": 256, "H": H, "ms": k_ms, "plain_ms": p_ms,
                       "ms_per_step": k_ms / longest, "longest_row": longest,
-                      "proj_plus_kernel_ms": pk_ms, "library_ms": lib_ms,
+                      "entries_ms": {"ids": ids_ms, "xw": xw_ms},
+                      "forward_ms": f_ms, "library_ms": lib_ms,
                       "library_max_abs_err": lib_err, "bound_ms": b_ms,
                       "bound_by": by, "flops": flops, "bytes": nbytes}
         emit({"phase": "kernels_lstm", "case": "timing", **timings[B]})
-    return {"max_abs_err": max_err, "timings": timings}
+    return {"max_abs_err": max_err, "timings": timings, "plan": plans[H]}
 
 
 def phase_tower() -> dict:
@@ -828,12 +966,19 @@ def phase_serve(card: str) -> dict:
 
 
 def phase_serve_lstm(card: str) -> dict:
+    """The LSTM main path: every served batch is one launch of K2's ids
+    entry, and the xw entry (with its (B, S, 4H) gates) never runs."""
     from repro_torch.configs.costmodel import COSTMODEL_BASE
     from repro_torch.core import models as CM
     from repro_torch.kernels import lstm_scan as K2
-    return run_serve("serve_lstm", "lstm",
-                     seeded_lstm_params(COSTMODEL_BASE, CM.DEFAULT_HEADS, 0),
-                     K2.lstm_scan_fused, CM.lstm_apply, card)
+    K2.lstm_scan_fused.launches = 0
+    out = run_serve("serve_lstm", "lstm",
+                    seeded_lstm_params(COSTMODEL_BASE, CM.DEFAULT_HEADS, 0),
+                    K2.lstm_scan_ids, CM.lstm_apply, card)
+    check(K2.lstm_scan_fused.launches == 0,
+          f"serve_lstm launched the xw entry "
+          f"{K2.lstm_scan_fused.launches} times")
+    return out
 
 
 def main() -> int:
@@ -870,7 +1015,7 @@ def main() -> int:
                                   "checked_wrapper_ms", "bound_ms",
                                   "bound_by")},
         "card": dev["nvidia_smi"]}, {
-        "name": "lstm_scan_fused", "route": "cuda",
+        "name": "lstm_scan_ids", "route": "cuda",
         "source": LSTM_SOURCE, "replaces": LSTM_TPU_KERNEL,
         "launches": serve_lstm["launches"],
         "max_abs_err": lstm["max_abs_err"],
@@ -878,13 +1023,16 @@ def main() -> int:
         "bound_ms": l64["bound_ms"], "bound_by": l64["bound_by"],
         "library_ms": l64["library_ms"],
         "library": "torch.nn.LSTM (cuDNN) on packed prefix sequences, "
-                   "from embedded x; against proj_plus_kernel_ms",
-        "proj_plus_kernel_ms": l64["proj_plus_kernel_ms"],
+                   "from embedded x; against forward_ms",
+        "entries": "lstm_scan_ids (main path, gather in the kernel) and "
+                   "lstm_scan_fused (xw, mask) launch one kernel template",
+        "entries_ms": l64["entries_ms"],
+        "forward_ms": l64["forward_ms"],
         "library_max_abs_err": l64["library_max_abs_err"],
-        "ms_per_step": l64["ms_per_step"],
+        "ms_per_step": l64["ms_per_step"], "plan": lstm["plan"],
         "shape": {"B": 64, "S": 256, "H": l64["H"]},
         "b1": {k: l1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "ms_per_step", "proj_plus_kernel_ms",
+                                  "ms_per_step", "entries_ms", "forward_ms",
                                   "library_ms")},
         "card": dev["nvidia_smi"]}, {
         "name": "conv1d_stack_fused", "route": "cuda",

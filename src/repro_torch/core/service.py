@@ -108,13 +108,13 @@ class CostModelService:
     # Serve through the fused forward (kernels/ops.forward_apply; the
     # kernels' plain versions on the CPU) instead of the plain PyTorch
     # apply. conv1d runs the full ids-in/predictions-out CUDA kernel
-    # (gather + tower + FC + heads in one launch); lstm gathers the input
-    # projection from a table computed once here and runs the recurrence
-    # and the heads in the LSTM CUDA kernel. Composes with dtype="bf16":
-    # the kernels read bf16 params but accumulate f32 (drift vs f32 is
-    # Spearman-gated in tests). The kernels' accumulation order differs
-    # from cuDNN's and cuBLAS's, so f32 parity is "allclose", not
-    # bit-identical.
+    # (gather + tower + FC + heads in one launch); lstm runs the LSTM
+    # CUDA kernel's ids entry (gather from a projection table computed
+    # once here, recurrence and heads in one launch). Composes with
+    # dtype="bf16": the kernels read bf16 params but accumulate f32
+    # (drift vs f32 is Spearman-gated in tests). The kernels'
+    # accumulation order differs from cuDNN's and cuBLAS's, so f32 parity
+    # is "allclose", not bit-identical.
     use_kernel: bool = False
     buckets: Optional[Tuple[int, ...]] = None   # None -> power-of-two ladder
     # batch sizes forward passes are padded up to (None -> power-of-two
@@ -170,9 +170,10 @@ class CostModelService:
             self.params, self._device,
             torch.bfloat16 if self.dtype == "bf16" else None)
         if self.use_kernel and self.kind == "lstm":
-            # the input projection of every id, once: forward passes
-            # gather from it (batch-invariant rows)
-            params = dict(params, xw_table=KOPS.lstm_xw_table(params))
+            # the input projection of every id and the stacked heads,
+            # once: the kernel reads the table by id (batch-invariant
+            # rows), and a served batch is one launch
+            params = KOPS.lstm_serving_params(params)
         self._apply = lambda ids: apply_fn(params, ids)
         self._vocab_rows = int(params["emb"].shape[0])
         self.heads = CM.model_heads(self.params) or (

@@ -1,20 +1,29 @@
 """The masked LSTM recurrence as a hand-written CUDA kernel.
 
-:func:`lstm_scan_fused` takes the precomputed input gates ``xw = x @ wx
-+ b``, the mask and the recurrent weights, and returns the final hidden
-state of every row, or with stacked heads their predictions, in one
-launch of ``csrc/lstm_scan.cu``. The source's header says what bounds
-the kernel on an H100 and how the design follows from that.
+Two entries launch the one kernel of ``csrc/lstm_scan.cu``; they differ
+only in how a step finds its input gates:
 
-For a tensor on the CPU the wrapper computes the same function with its
-plain PyTorch version (``kernels/ref.py::lstm_scan_ref``); for a CUDA
-tensor it launches the kernel or raises.
+* :func:`lstm_scan_fused` takes the precomputed input gates ``xw = x @
+  wx + b`` and the mask: the counterpart of the TPU kernel, with its
+  signature.
+* :func:`lstm_scan_ids` takes the (V, 4H) projection table ``emb @ wx +
+  b`` and the token ids, and gathers each step's gates inside the kernel
+  (the serving path: no (B, S, 4H) copy, no mask tensor).
+
+Each returns the final hidden state of every row, or with stacked heads
+their predictions, in one launch. The source's header says what bounds
+the kernel on an H100 and how the design follows from that; its plan
+(one block or a 2-block cluster a row, by H) is asked by :func:`plan`.
+
+For tensors on the CPU each wrapper computes the same function with its
+plain PyTorch version (``kernels/ref.py``); for CUDA tensors it launches
+the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -25,6 +34,8 @@ LIB = "lstm_scan"
 
 _count_lock = threading.Lock()
 _ENTRY = {torch.float32: "lstm_scan_f32", torch.bfloat16: "lstm_scan_bf16"}
+_IDS_ENTRY = {torch.float32: "lstm_scan_ids_f32",
+              torch.bfloat16: "lstm_scan_ids_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -36,38 +47,53 @@ def max_hidden() -> int:
     return fn()
 
 
-def _entry(dtype: torch.dtype):
-    fn = getattr(_build.load(LIB), _ENTRY[dtype])
+def plan(hidden: int) -> Dict[str, int]:
+    """The kernel's plan for ``hidden``, from ``plan()`` in
+    ``csrc/lstm_scan.cu`` (it asks the built library): ``ctas`` blocks a
+    row (1, or a 2-block cluster), ``rows`` of k each lane keeps of ``wh``
+    in registers (for four gate columns), ``units`` hidden units a block,
+    ``threads`` a block.
+    Raises ValueError for a size the kernel does not take."""
+    fn = _build.load(LIB).lstm_scan_plan
+    fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    if fn(hidden, out) != 0:
+        raise ValueError(f"lstm_scan: hidden size {hidden} is outside the "
+                         f"kernel's range [1, kMaxHidden = {max_hidden()}] "
+                         f"(csrc/lstm_scan.cu)")
+    return dict(zip(("ctas", "rows", "units", "threads"), out))
+
+
+def _entry(names, dtype: torch.dtype, argtypes):
+    fn = getattr(_build.load(LIB), names[dtype])
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(xw, mask, wh, heads) -> None:
-    for t in (xw, mask, wh, *heads):
-        if t.device != xw.device:
-            raise ValueError(f"all tensors must be on {xw.device}, got one "
-                             f"on {t.device}")
+def _check_common(lead, wh, heads, gates_name: str) -> int:
+    """Device and contiguity of every tensor, wh (H, 4H) in ``lead``'s
+    float dtype, and the heads; returns H."""
+    for t in (lead, wh, *heads):
+        if t.device != lead.device:
+            raise ValueError(f"all tensors must be on {lead.device}, got "
+                             f"one on {t.device}")
         if not t.is_contiguous():
             raise ValueError("all tensors must be contiguous")
-    if xw.dim() != 3 or wh.dim() != 2:
-        raise ValueError(f"need xw (B, S, 4H) and wh (H, 4H), got "
-                         f"{tuple(xw.shape)} and {tuple(wh.shape)}")
+    if wh.dim() != 2 or wh.shape[1] != 4 * wh.shape[0]:
+        raise ValueError(f"wh must be (H, 4H), got {tuple(wh.shape)}")
     hidden = wh.shape[0]
-    if wh.shape[1] != 4 * hidden or xw.shape[2] != 4 * hidden:
-        raise ValueError(f"xw {tuple(xw.shape)} and wh {tuple(wh.shape)} "
-                         f"need 4H == xw.shape[-1] == wh.shape[1]")
-    if tuple(mask.shape) != tuple(xw.shape[:2]):
-        raise ValueError(f"mask must be (B, S) = {tuple(xw.shape[:2])}, "
-                         f"got {tuple(mask.shape)}")
-    if mask.dtype != torch.float32:
-        raise ValueError(f"mask must be float32, got {mask.dtype}")
-    if {t.dtype for t in (xw, wh, *heads)} != {xw.dtype} or \
-            xw.dtype not in _ENTRY:
+    if lead.shape[-1] != 4 * hidden:
+        raise ValueError(f"{gates_name} {tuple(lead.shape)} and wh "
+                         f"{tuple(wh.shape)} need 4H == {gates_name}"
+                         f".shape[-1] == wh.shape[1]")
+    if {t.dtype for t in (lead, wh, *heads)} != {lead.dtype} or \
+            lead.dtype not in _ENTRY:
         raise ValueError(
-            f"xw, wh and the heads must all be float32 or all bfloat16, "
-            f"got {[str(t.dtype) for t in (xw, wh, *heads)]}")
+            f"{gates_name}, wh and the heads must all be float32 or all "
+            f"bfloat16, got {[str(t.dtype) for t in (lead, wh, *heads)]}")
     if heads:
         head_w, head_b = heads
         if head_w.dim() != 2 or head_w.shape[0] != hidden or \
@@ -76,6 +102,13 @@ def _check(xw, mask, wh, heads) -> None:
             raise ValueError(f"heads {tuple(head_w.shape)} + "
                              f"{tuple(head_b.shape)} do not follow "
                              f"hidden size {hidden}")
+    return hidden
+
+
+def _heads(head_w, head_b) -> tuple:
+    if (head_w is None) != (head_b is None):
+        raise ValueError("head_w and head_b come together")
+    return () if head_w is None else (head_w, head_b)
 
 
 def lstm_scan_fused(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -94,10 +127,17 @@ def lstm_scan_fused(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     Each launch of the kernel adds one to ``lstm_scan_fused.launches``.
     On a CUDA tensor the kernel takes H <= :func:`max_hidden` and raises
     ValueError above it."""
-    if (head_w is None) != (head_b is None):
-        raise ValueError("head_w and head_b come together")
-    heads = () if head_w is None else (head_w, head_b)
-    _check(xw, mask, wh, heads)
+    heads = _heads(head_w, head_b)
+    if xw.dim() != 3:
+        raise ValueError(f"xw must be (B, S, 4H), got {tuple(xw.shape)}")
+    _check_common(xw, wh, heads, "xw")
+    if mask.device != xw.device or not mask.is_contiguous():
+        raise ValueError("mask must be contiguous and on xw's device")
+    if tuple(mask.shape) != tuple(xw.shape[:2]):
+        raise ValueError(f"mask must be (B, S) = {tuple(xw.shape[:2])}, "
+                         f"got {tuple(mask.shape)}")
+    if mask.dtype != torch.float32:
+        raise ValueError(f"mask must be float32, got {mask.dtype}")
     if xw.device.type == "cpu":
         return REF.lstm_scan_ref(xw, mask, wh, *heads)
     if xw.device.type != "cuda":
@@ -105,36 +145,95 @@ def lstm_scan_fused(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     return _launch(xw, mask, wh, *heads)
 
 
-def _launch(xw, mask, wh, head_w=None, head_b=None) -> torch.Tensor:
-    """Launch the kernel on checked CUDA tensors (no checks here: call
-    :func:`lstm_scan_fused`). Counts the launch."""
-    B, S, _ = xw.shape
-    hidden = int(wh.shape[0])
-    out = torch.empty((B, hidden), dtype=torch.float32, device=xw.device)
-    pred, n_heads = None, 0
-    if head_w is not None:
-        n_heads = int(head_w.shape[1])
-        pred = torch.empty((B, n_heads), dtype=torch.float32,
-                           device=xw.device)
-    fn = _entry(xw.dtype)
-    with torch.cuda.device(xw.device):
-        stream = torch.cuda.current_stream(xw.device).cuda_stream
-        rc = fn(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(),
-                None if head_w is None else head_w.data_ptr(),
-                None if head_b is None else head_b.data_ptr(), n_heads,
-                B, S, hidden, out.data_ptr(),
-                None if pred is None else pred.data_ptr(), stream)
+def lstm_scan_ids(table: torch.Tensor, ids: torch.Tensor, wh: torch.Tensor,
+                  head_w: Optional[torch.Tensor] = None,
+                  head_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The same recurrence with the gather inside the launch.
+
+    table: (V, 4H) input projection of every token id (``emb @ wx + b``),
+    float32 or bfloat16; ids: (B, S) int32. Step t of row b takes the
+    gates ``table[ids[b, t]]`` and is valid where the id lies in [1, V):
+    PAD (0) and an id outside the table carry (h, c) through, so the
+    kernel never reads outside the table. Otherwise as
+    :func:`lstm_scan_fused`, which on ``(table[ids], (ids != 0).float())``
+    gives the same bits for in-range ids. Each launch of the kernel adds
+    one to ``lstm_scan_ids.launches``."""
+    heads = _heads(head_w, head_b)
+    if ids.dtype != torch.int32:
+        raise ValueError(f"ids must be int32, got {ids.dtype}")
+    if ids.dim() != 2:
+        raise ValueError(f"ids must be (B, S), got {tuple(ids.shape)}")
+    if table.dim() != 2 or table.shape[0] < 1:
+        raise ValueError(f"table must be (V, 4H) with V >= 1, got "
+                         f"{tuple(table.shape)}")
+    if ids.device != table.device or not ids.is_contiguous():
+        raise ValueError("ids must be contiguous and on the table's device")
+    _check_common(table, wh, heads, "table")
+    if table.device.type == "cpu":
+        return REF.lstm_scan_ids_ref(table, ids, wh, *heads)
+    if table.device.type != "cuda":
+        raise ValueError(f"no kernel for device {table.device}")
+    return _launch_ids(table, ids, wh, *heads)
+
+
+def _outputs(B: int, hidden: int, head_w, device):
+    out = torch.empty((B, hidden), dtype=torch.float32, device=device)
+    if head_w is None:
+        return out, None, 0
+    n_heads = int(head_w.shape[1])
+    return out, torch.empty((B, n_heads), dtype=torch.float32,
+                            device=device), n_heads
+
+
+def _finish(rc: int, hidden: int, B: int, counted, out, pred):
     if rc == -1:
         raise ValueError(
-            f"lstm_scan_fused: hidden size {hidden} is above the kernel's "
+            f"lstm_scan: hidden size {hidden} is above the kernel's "
             f"limit kMaxHidden = {max_hidden()} (csrc/lstm_scan.cu)")
     if rc != 0:
         raise RuntimeError(f"lstm_scan kernel launch failed ({rc}): "
                            f"{_build.error_string(LIB, rc)}")
     if B > 0:
         with _count_lock:
-            lstm_scan_fused.launches += 1
+            counted.launches += 1
     return out if pred is None else pred
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(xw, mask, wh, head_w=None, head_b=None) -> torch.Tensor:
+    """Launch the kernel's xw entry on checked CUDA tensors (no checks
+    here: call :func:`lstm_scan_fused`). Counts the launch."""
+    B, S, _ = xw.shape
+    hidden = int(wh.shape[0])
+    out, pred, n_heads = _outputs(B, hidden, head_w, xw.device)
+    fn = _entry(_ENTRY, xw.dtype,
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
+    with torch.cuda.device(xw.device):
+        stream = torch.cuda.current_stream(xw.device).cuda_stream
+        rc = fn(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(),
+                _ptr(head_w), _ptr(head_b), n_heads, B, S, hidden,
+                out.data_ptr(), _ptr(pred), stream)
+    return _finish(rc, hidden, B, lstm_scan_fused, out, pred)
+
+
+def _launch_ids(table, ids, wh, head_w=None, head_b=None) -> torch.Tensor:
+    """Launch the kernel's ids entry on checked CUDA tensors (no checks
+    here: call :func:`lstm_scan_ids`). Counts the launch."""
+    B, S = ids.shape
+    hidden = int(wh.shape[0])
+    out, pred, n_heads = _outputs(B, hidden, head_w, table.device)
+    fn = _entry(_IDS_ENTRY, table.dtype,
+                [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        rc = fn(table.data_ptr(), ids.data_ptr(), int(table.shape[0]),
+                wh.data_ptr(), _ptr(head_w), _ptr(head_b), n_heads, B, S,
+                hidden, out.data_ptr(), _ptr(pred), stream)
+    return _finish(rc, hidden, B, lstm_scan_ids, out, pred)
+
+
 lstm_scan_fused.launches = 0
+lstm_scan_ids.launches = 0

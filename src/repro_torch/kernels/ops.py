@@ -4,9 +4,10 @@
   ids in, per-target predictions out, one launch of the CUDA kernel
   (embedding gather, pad mask, conv tower, max-pool, FC stack and the
   stacked heads).
-* :func:`lstm_forward_apply` — kind="lstm": the input projection is a
-  gather from the table ``emb @ wx + b`` (:func:`lstm_xw_table`), the
-  recurrence and the stacked heads one launch of the LSTM kernel.
+* :func:`lstm_forward_apply` — kind="lstm": one launch of the LSTM
+  kernel's ids entry, which reads each step's input projection from the
+  table ``emb @ wx + b`` (:func:`lstm_xw_table`) by id and runs the
+  recurrence and the stacked heads.
 * :func:`conv_tower_apply` — the "half-fused" rung of kind="conv1d": the
   gather in PyTorch, the conv tower and a masked max-pool in one launch
   of the tower kernel, the FC stack and heads in PyTorch.
@@ -27,7 +28,7 @@ from repro_torch.kernels import lstm_scan as K_LSTM
 from repro_torch.kernels import ref as REF
 from repro_torch.kernels.conv1d_stack import (conv1d_stack_fused,
                                               conv_forward_fused)
-from repro_torch.kernels.lstm_scan import lstm_scan_fused
+from repro_torch.kernels.lstm_scan import lstm_scan_fused, lstm_scan_ids
 from repro_torch.params import tree_leaves
 
 # Model kinds with a fused serving forward (see forward_apply), and the
@@ -92,32 +93,43 @@ def conv_forward_apply(params, ids: torch.Tensor, *,
 def lstm_xw_table(params) -> torch.Tensor:
     """The LSTM's input projection of every token id, ``emb @ wx + b``:
     (V, 4H) in the params' dtype. Row 0 is PAD's projection, which the
-    mask then skips, as in ``lstm_encode``."""
+    kernel never reads (a PAD step is masked), as in ``lstm_encode``."""
     return params["emb"] @ params["wx"] + params["b"]
+
+
+def lstm_serving_params(params):
+    """``params`` with what every served LSTM batch reads computed once:
+    the projection table (``xw_table``) and the stacked heads
+    (``stacked_heads``), so a batch is one kernel launch."""
+    return dict(params, xw_table=lstm_xw_table(params),
+                stacked_heads=_stacked_heads(params))
 
 
 def lstm_forward_apply(params, ids: torch.Tensor, *,
                        check_ids: bool = True):
-    """Fused serving forward for kind="lstm": ids -> predictions.
+    """Fused serving forward for kind="lstm": int32 ids -> predictions.
 
-    The input projection of each position depends only on its id, so it
-    is a gather from :func:`lstm_xw_table` (``params["xw_table"]`` when
-    the caller precomputed it, as the service does; else computed here).
-    A gather gives every row the same bits in any batch, which a matmul
-    over the batch's B*S rows does not: cuBLAS picks its algorithm by the
-    shape. The recurrence and the stacked heads are then one launch of
-    :func:`lstm_scan_fused`. Output matches ``lstm_apply``, always
-    float32. ``check_ids`` checks the id range first; on a CUDA tensor
-    that waits for the card, and the service, which checks on the host,
-    passes False."""
+    The input projection of each position depends only on its id, so the
+    kernel reads it from the table :func:`lstm_xw_table` by id, inside
+    its launch (:func:`lstm_scan_ids`): no (B, S, 4H) copy and no mask
+    tensor. ``params["xw_table"]`` and ``params["stacked_heads"]`` are
+    used when the caller precomputed them (:func:`lstm_serving_params`,
+    as the service does), else computed here. A table row has the same
+    bits in any batch, which a matmul over the batch's B*S rows does not
+    give: cuBLAS picks its algorithm by the shape. The recurrence and
+    the stacked heads are one launch. Output matches ``lstm_apply``,
+    always float32. ``check_ids`` checks the id range first; on a CUDA
+    tensor that waits for the card, and the service, which checks on the
+    host, passes False (the kernel reads an id outside the table as
+    PAD)."""
     if check_ids:
         K_CONV.check_id_range(ids, params["emb"].shape[0])
     table = params.get("xw_table")
     if table is None:
         table = lstm_xw_table(params)
-    mask = (ids != 0).to(torch.float32)
-    head_w, head_b, names = _stacked_heads(params)
-    out = lstm_scan_fused(table[ids], mask, params["wh"], head_w, head_b)
+    head_w, head_b, names = params.get("stacked_heads") or \
+        _stacked_heads(params)
+    out = lstm_scan_ids(table, ids, params["wh"], head_w, head_b)
     if names is None:
         return out[:, 0]
     return {t: out[:, i] for i, t in enumerate(names)}

@@ -46,6 +46,17 @@ def lstm_scan_ref(xw, mask, wh, head_w=None, head_b=None):
     return h @ head_w.float() + head_b.float()
 
 
+def lstm_scan_ids_ref(table, ids, wh, head_w=None, head_b=None):
+    """The plain version of kernels/lstm_scan.py::lstm_scan_ids: the
+    recurrence of :func:`lstm_scan_ref` on the gates ``table[ids]``, with
+    a step valid where its id lies in [1, V). For ids in [0, V) that is
+    ``lstm_scan_ref(table[ids], (ids != 0).float(), ...)``; an id outside
+    the table reads as PAD, as in the kernel."""
+    valid = (ids > 0) & (ids < table.shape[0])
+    xw = table[torch.where(valid, ids, torch.zeros_like(ids))]
+    return lstm_scan_ref(xw, valid.float(), wh, head_w, head_b)
+
+
 def conv_forward_fused_ref(ids, emb, conv_weights, conv_biases,
                            fc_weights, fc_biases, head_w, head_b):
     """The plain version of kernels/conv1d_stack.py::conv_forward_fused,

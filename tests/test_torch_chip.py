@@ -1,10 +1,10 @@
 """The port on an NVIDIA card: the CUDA kernels (the fused conv forward,
-the LSTM recurrence, the masked conv tower) against their plain
-versions, rows bit-identical across the batch ladder, and the services
-and server on the card. Every case is marked ``chip`` and skips where
-``torch.cuda.is_available()`` is False. This file imports neither JAX
-nor the reference package, so it runs on a machine that has only the
-port's dependencies:
+the LSTM recurrence through both its entries, the masked conv tower)
+against their plain versions, rows bit-identical across the batch
+ladder, and the services and server on the card. Every case is marked
+``chip`` and skips where ``torch.cuda.is_available()`` is False. This
+file imports neither JAX nor the reference package, so it runs on a
+machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_chip.py
 """
@@ -108,15 +108,18 @@ def test_kernel_matches_plain(cuda, cfg_name, S, heads, dtype):
 
 
 def test_rows_bit_identical_across_ladder(cuda):
+    """Each row, at another position in a batch of every ladder size, has
+    the same bits (row 0 of the full batch is all PAD, so B=1 holds a
+    real row)."""
     cfg = CFGS.COSTMODEL_BASE
     pt = card_params(cfg, DEFAULT_HEADS, cuda, seed=1)
-    ids = torch.from_numpy(ragged_ids(np.random.default_rng(2), 64, 256,
+    ids = torch.from_numpy(ragged_ids(np.random.default_rng(2), 65, 256,
                                       cfg.vocab_size)).to(cuda)
     full = ops.conv_forward_apply(pt, ids)
     for b in LADDER:
-        part = ops.conv_forward_apply(pt, ids[:b].contiguous())
+        part = ops.conv_forward_apply(pt, ids[1:b + 1].contiguous())
         for t in DEFAULT_HEADS:
-            assert torch.equal(part[t], full[t][:b]), (b, t)
+            assert torch.equal(part[t], full[t][1:b + 1]), (b, t)
 
 
 def test_out_of_range_id_raises_on_card(cuda):
@@ -191,10 +194,11 @@ def _scan_inputs(device, B, S, H, dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H", [(1, 16, 8), (5, 32, 16), (8, 64, 16),
                                    (1, 256, 128), (5, 32, 128),
-                                   (64, 256, 128)])
+                                   (64, 256, 128), (256, 48, 128)])
 def test_lstm_kernel_matches_plain(cuda, B, S, H, dtype):
     """The reference's test shapes (f32 within its 1e-5) and
-    COSTMODEL_BASE's H=128 (2e-4); bf16 against the plain version on the
+    COSTMODEL_BASE's H=128 (2e-4), up to the service's max_batch of 256
+    (several waves of clusters); bf16 against the plain version on the
     same bf16 values; the all-PAD row is exactly 0."""
     xw, mask, wh = _scan_inputs(cuda, B, S, H, dtype)
     before = K2.lstm_scan_fused.launches
@@ -205,6 +209,71 @@ def test_lstm_kernel_matches_plain(cuda, B, S, H, dtype):
     tol = 1e-5 if H <= 16 and dtype == torch.float32 else TOL
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     assert B == 1 or not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [16, 33, 64, 65, 119, 128])
+def test_lstm_ids_kernel_matches_plain(cuda, H, dtype):
+    """The ids entry with stacked heads against its plain version, at
+    one-block plans (H <= 64, odd H) and 2-block cluster plans (at H=65
+    block 1 has a whole warp of idle lanes); the two entries give the
+    same bits on the same gates."""
+    rng = np.random.default_rng(H)
+    V, B, S = 200, 9, 40
+    table = torch.tensor(rng.normal(size=(V, 4 * H)) * 0.5, dtype=dtype,
+                         device=cuda)
+    wh = torch.tensor(rng.normal(size=(H, 4 * H)) * H ** -0.5, dtype=dtype,
+                      device=cuda)
+    hw = torch.tensor(rng.normal(size=(H, 3)) * H ** -0.5, dtype=dtype,
+                      device=cuda)
+    hb = torch.tensor(rng.normal(size=(3,)) * 0.1, dtype=dtype, device=cuda)
+    ids = torch.from_numpy(ragged_ids(rng, B, S, V)).to(cuda)
+    before = K2.lstm_scan_ids.launches
+    got = K2.lstm_scan_ids(table, ids, wh, hw, hb)
+    h = K2.lstm_scan_ids(table, ids, wh)
+    want = REF.lstm_scan_ids_ref(table, ids, wh, hw, hb)
+    torch.cuda.synchronize()
+    assert K2.lstm_scan_ids.launches == before + 2
+    tol = 1e-5 if H <= 16 and dtype == torch.float32 else TOL
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert not h[0].any()
+    xw, mask = table[ids].contiguous(), (ids != 0).float()
+    assert torch.equal(got, K2.lstm_scan_fused(xw, mask, wh, hw, hb))
+    assert torch.equal(h, K2.lstm_scan_fused(xw, mask, wh))
+
+
+@pytest.mark.parametrize("bad", [-1, 8192, 1 << 30])
+def test_lstm_ids_out_of_range_id_reads_as_pad(cuda, bad):
+    """The kernel reads an id outside the table as PAD, never outside
+    the table."""
+    cfg = CFGS.COSTMODEL_BASE
+    pt = P.from_numpy(seeded_lstm_params(cfg, None, 3), cuda)
+    table = ops.lstm_xw_table(pt)
+    ids = torch.from_numpy(ragged_ids(np.random.default_rng(8), 3, 32,
+                                      cfg.vocab_size)).to(cuda)
+    ids[1, 0], ids[2, 0] = 5, 7                  # rows 1, 2 start real
+    bad_ids, pad = ids.clone(), ids.clone()
+    bad_ids[1, 0], bad_ids[2, 31] = bad, bad
+    pad[1, 0], pad[2, 31] = 0, 0
+    got = K2.lstm_scan_ids(table, bad_ids, pt["wh"])
+    assert torch.equal(got, K2.lstm_scan_ids(table, pad, pt["wh"]))
+    assert not torch.equal(got, K2.lstm_scan_ids(table, ids, pt["wh"]))
+
+
+def test_lstm_plan(cuda):
+    """The plans of csrc/lstm_scan.cu: a 2-block cluster a row at
+    COSTMODEL_BASE's H=128 (512 threads, 16 rows of k a lane), one block
+    at H <= 64, a ValueError above kMaxHidden."""
+    assert K2.plan(128) == {"ctas": 2, "rows": 16, "units": 64,
+                            "threads": 512}
+    assert K2.plan(119)["ctas"] == 2 and K2.plan(119)["units"] == 60
+    assert K2.plan(65) == {"ctas": 2, "rows": 16, "units": 33,
+                           "threads": 8 * 36}
+    assert K2.plan(64) == {"ctas": 1, "rows": 8, "units": 64,
+                           "threads": 512}
+    assert K2.plan(33)["threads"] == 8 * 36
+    with pytest.raises(ValueError, match="kMaxHidden"):
+        K2.plan(K2.max_hidden() + 1)
 
 
 @pytest.mark.parametrize("heads", [None, DEFAULT_HEADS])
@@ -220,7 +289,7 @@ def test_lstm_forward_matches_plain_model(cuda, heads):
 
 def test_lstm_rows_bit_identical_across_ladder(cuda):
     """Each row, at another position in a batch of every ladder size,
-    has the same bits: the kernel alone and the forward with its
+    has the same bits: both kernel entries alone and the forward with its
     projection table and in-kernel heads."""
     cfg = CFGS.COSTMODEL_BASE
     pt = P.from_numpy(seeded_lstm_params(cfg, DEFAULT_HEADS, 2), cuda)
@@ -230,6 +299,9 @@ def test_lstm_rows_bit_identical_across_ladder(cuda):
     xw = ops.lstm_xw_table(pt)[ids]
     mask = (ids != 0).float()
     h = K2.lstm_scan_fused(xw, mask, pt["wh"])
+    table = ops.lstm_xw_table(pt)
+    h_ids = K2.lstm_scan_ids(table, ids, pt["wh"])
+    assert torch.equal(h_ids, h)
     for b in LADDER:
         part = ops.lstm_forward_apply(pt, ids[1:b + 1].contiguous())
         for t in DEFAULT_HEADS:
@@ -237,6 +309,8 @@ def test_lstm_rows_bit_identical_across_ladder(cuda):
         assert torch.equal(K2.lstm_scan_fused(
             xw[1:b + 1].contiguous(), mask[1:b + 1].contiguous(),
             pt["wh"]), h[1:b + 1]), b
+        assert torch.equal(K2.lstm_scan_ids(
+            table, ids[1:b + 1].contiguous(), pt["wh"]), h[1:b + 1]), b
 
 
 def test_lstm_hidden_above_the_limit_raises(cuda):
@@ -245,6 +319,9 @@ def test_lstm_hidden_above_the_limit_raises(cuda):
     xw, mask, wh = _scan_inputs(cuda, 2, 8, limit + 4, torch.float32)
     with pytest.raises(ValueError, match="kMaxHidden"):
         K2.lstm_scan_fused(xw, mask, wh)
+    ids = torch.ones((2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="kMaxHidden"):
+        K2.lstm_scan_ids(xw[0], ids, wh)
 
 
 # ------------------------------------------------------- tower (masked)
@@ -325,7 +402,7 @@ def corpus():
 
 
 SEEDED = {"conv1d": seeded_params, "lstm": seeded_lstm_params}
-KERNEL = {"conv1d": K.conv_forward_fused, "lstm": K2.lstm_scan_fused}
+KERNEL = {"conv1d": K.conv_forward_fused, "lstm": K2.lstm_scan_ids}
 
 
 def _service(vocab, device, kind="conv1d", **kw):

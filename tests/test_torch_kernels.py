@@ -352,6 +352,119 @@ def test_lstm_wrapper_plain_path_on_cpu_counts_no_launch():
     assert K2.lstm_scan_fused.launches == before
 
 
+# ------------------------------------------- LSTM recurrence, ids entry
+def _ids_entry_args(pt, ids):
+    """lstm_scan_ids' arguments for a param tree: its projection table,
+    the ids, wh and the stacked heads, and the head names."""
+    head_w, head_b, names = T_OPS.lstm_serving_params(pt)["stacked_heads"]
+    return (T_OPS.lstm_xw_table(pt), ids, pt["wh"], head_w, head_b), names
+
+
+@pytest.mark.parametrize("heads", [None, RM.DEFAULT_HEADS])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_lstm_scan_ids_matches_reference_forward(heads, dtype):
+    """The ids entry (plain path on the CPU) on the projection table and
+    the stacked heads vs the reference's lstm_forward_apply with its
+    Pallas kernel in interpret mode: ragged ids, within the reference's
+    limits; the all-PAD row's hidden state is exactly 0."""
+    pn = lstm_ref_params(heads, seed=13)
+    ids = ragged_ids(np.random.default_rng(19), 6, 48,
+                     COSTMODEL_SMALL.vocab_size)
+    rp = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), pn) \
+        if dtype == "bf16" else pn
+    tp = P.from_numpy(pn, "cpu",
+                      torch.bfloat16 if dtype == "bf16" else None)
+    args, names = _ids_entry_args(tp, torch.from_numpy(ids))
+    got = K2.lstm_scan_ids(*args)
+    assert got.dtype == torch.float32 and got.shape == (6, len(names or
+                                                             (0,)))
+    kern = R_OPS.lstm_forward_apply(rp, jnp.asarray(ids), interpret=True)
+    np.testing.assert_allclose(got.numpy() if names else got[:, 0].numpy(),
+                               as_np(kern, names), rtol=TOL, atol=TOL)
+    h = K2.lstm_scan_ids(*args[:3])
+    assert h.shape == (6, COSTMODEL_SMALL.lstm_hidden)
+    assert not h[0].any()
+    assert torch.equal(got[0], args[4].float())          # h = 0: bias only
+
+
+@pytest.mark.parametrize("heads", [False, True])
+def test_lstm_scan_ids_equals_fused_on_the_gathered_gates(heads):
+    """lstm_scan_ids(table, ids, ...) == lstm_scan_fused(table[ids],
+    (ids != 0).float(), ...) bit for bit for ids inside the table."""
+    pt = P.from_numpy(lstm_ref_params(RM.DEFAULT_HEADS), "cpu")
+    ids = _ids(B=5, S=32)
+    (table, _, wh, hw, hb), _ = _ids_entry_args(pt, ids)
+    extra = (hw, hb) if heads else ()
+    got = K2.lstm_scan_ids(table, ids, wh, *extra)
+    want = K2.lstm_scan_fused(table[ids], (ids != 0).float(), wh, *extra)
+    assert torch.equal(got, want)
+
+
+def test_lstm_scan_ids_reads_an_id_outside_the_table_as_pad():
+    pt = P.from_numpy(lstm_ref_params(None), "cpu")
+    ids = _ids(B=4, S=16)
+    table, wh = T_OPS.lstm_xw_table(pt), pt["wh"]
+    bad, pad = ids.clone(), ids.clone()
+    for r, (pos, v) in enumerate(((0, -1), (3, table.shape[0]),
+                                  (15, 1 << 30))):
+        bad[r + 1, pos], pad[r + 1, pos] = v, 0
+    assert torch.equal(K2.lstm_scan_ids(table, bad, wh),
+                       K2.lstm_scan_ids(table, pad, wh))
+    assert not torch.equal(K2.lstm_scan_ids(table, pad, wh),
+                           K2.lstm_scan_ids(table, ids, wh))
+
+
+def test_lstm_serving_params_give_the_same_rows():
+    """The service's precomputed table and stacked heads give the rows
+    lstm_forward_apply computes from the params alone, bit for bit."""
+    pt = P.from_numpy(lstm_ref_params(RM.DEFAULT_HEADS), "cpu")
+    ids = _ids(B=4, S=32)
+    a = T_OPS.lstm_forward_apply(pt, ids)
+    b = T_OPS.lstm_forward_apply(T_OPS.lstm_serving_params(pt), ids)
+    for t in RM.DEFAULT_HEADS:
+        assert torch.equal(a[t], b[t])
+
+
+@pytest.mark.parametrize("case", ["ids_int64", "ids_1d", "bad_table_4h",
+                                  "table_1d", "empty_table", "two_devices",
+                                  "ids_noncontig", "table_noncontig",
+                                  "mixed_dtype", "half_heads"])
+def test_lstm_ids_wrapper_rejects_bad_input(case):
+    pt = P.from_numpy(lstm_ref_params(None), "cpu")
+    table, ids, wh = T_OPS.lstm_xw_table(pt), _ids(B=3, S=8), pt["wh"]
+    heads = ()
+    if case == "ids_int64":
+        ids = ids.long()
+    elif case == "ids_1d":
+        ids = ids[0].contiguous()
+    elif case == "bad_table_4h":
+        table = table[:, :-4].contiguous()
+    elif case == "table_1d":
+        table = table[0].contiguous()
+    elif case == "empty_table":
+        table = table[:0]
+    elif case == "two_devices":
+        table = table.to("meta")
+    elif case == "ids_noncontig":
+        ids = ids.t().contiguous().t()
+    elif case == "table_noncontig":
+        table = table.t().contiguous().t()
+    elif case == "mixed_dtype":
+        wh = wh.to(torch.bfloat16)
+    elif case == "half_heads":
+        heads = (torch.zeros(wh.shape[0], 2), None)
+    with pytest.raises(ValueError):
+        K2.lstm_scan_ids(table, ids, wh, *heads)
+
+
+def test_lstm_ids_wrapper_plain_path_on_cpu_counts_no_launch():
+    pt = P.from_numpy(lstm_ref_params(None), "cpu")
+    before = K2.lstm_scan_ids.launches
+    out = K2.lstm_scan_ids(T_OPS.lstm_xw_table(pt), _ids(), pt["wh"])
+    assert out.shape == (3, COSTMODEL_SMALL.lstm_hidden)
+    assert K2.lstm_scan_ids.launches == before
+
+
 # ------------------------------------------------------- tower (masked)
 def _tower_inputs(rng, B, S, C, fs_list):
     """The reference test's inputs (random x at every position, random

@@ -10,20 +10,26 @@ Phases, each printing JSON lines:
    prints them (that raw line is printed too).
 2. ``build``   — builds the three CUDA kernel libraries from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all started
-   together) and reports each one's seconds and ptxas register and spill
-   lines.
+   together; K1 and K3 share ``conv_tile.cuh``) and reports each one's
+   seconds and ptxas register and spill lines.
 3. ``kernels`` — holds the fused conv forward kernel (K1) against its
    plain PyTorch version on the card (TF32 off), with ragged ids and one
    all-PAD row, both head layouts: COSTMODEL_BASE widths at S in {32,
-   256}, B in {1, 5, 64}; COSTMODEL_OPERAND's (16,16,8,8,2,1) filter mix
-   at S=1024 (several sequence tiles); bf16 params; and bit-identical
-   rows for every batch size of the service's ladder up to 64. Params
-   are drawn from a seed with every bias nonzero and the embedding
-   scaled so the limit is tight, and the phase checks that the plain
-   version with any group of biases zeroed misses the limit, so the
-   parity checks can fail. The ladder check moves each row one position
-   in its batch, so B=1 holds a real row. Times the kernel and the plain
-   version with CUDA events, and reports how far a TF32 plain version
+   256}, B in {1, 5, 64}; tile edges (S=200, not a multiple of the
+   tile, and COSTMODEL_OPERAND's (16,16,8,8,2,1) filter mix at S=1024,
+   B in {1, 5}: 12 tiles a row with a halo of 45); bf16 params; and
+   bit-identical rows for every batch size of the service's ladder up to
+   its max_batch of 256, along which the tile changes. Params are drawn
+   from a seed with every bias nonzero and the embedding scaled so the
+   limit is tight, and the phase checks that the plain version with any
+   group of biases zeroed, or with a pool that drops the last tile's
+   positions, misses the limit by 10x, so the parity checks can fail.
+   The ladder check moves each row one position in its batch, so B=1
+   holds a real row. Times the kernel and the plain version in turns
+   with CUDA events at B in {64, 4, 1} (``ms``, as since K1 was ported),
+   beside them the card's time alone and the host's (``device_ms``,
+   ``host_ms``), prints each B's tile plan and the kernel's ptxas
+   registers and spills, and reports how far a TF32 plain version
    lands.
 4. ``serve``   — the Conv1D main path: ``build_dataset`` (300 graphs),
    random COSTMODEL_BASE multi-head params from a seed, a
@@ -32,7 +38,7 @@ Phases, each printing JSON lines:
    repeats). Checks that the kernel ran once for every batch the server
    flushed after warm-up, that rows are finite, equal a direct plain
    forward of the same ids and a direct ``predict_all`` bit for bit, and
-   that the LRU answered.
+   that the LRU answered; reports the service's forward time a batch.
 5. ``kernels_lstm`` — the LSTM recurrence kernel (K2) against its plain
    version through both entries (``lstm_scan_fused`` on gates and a
    mask, ``lstm_scan_ids`` on the projection table and ids, which must
@@ -45,12 +51,12 @@ Phases, each printing JSON lines:
    PAD; plain versions with the forget-gate +1 dropped, the gate bias
    zeroed, the mask ignored or each block's units blind to the peer's
    half of h must miss by more than 10x the limit; bf16 vs f32 params
-   keep each head's ranking; rows bit-identical across the ladder for
-   both entries and for ``lstm_forward_apply``. Times the ids entry
-   beside its plain version (``ms``, as K2 has been timed since it was
-   ported), the two entries beside each other, and the served forward
-   beside cuDNN's LSTM (``torch.nn.LSTM`` on packed prefix sequences,
-   the yardstick ``library_ms``).
+   keep each head's ranking; rows bit-identical across the ladder (up
+   to 256) for both entries and for ``lstm_forward_apply``. Times the
+   ids entry beside its plain version (``ms``, as K2 has been timed
+   since it was ported), the two entries beside each other, and the
+   served forward beside cuDNN's LSTM (``torch.nn.LSTM`` on packed
+   prefix sequences, the yardstick ``library_ms``).
 6. ``serve_lstm`` — the LSTM main path: the serve phase's dataset,
    requests and checks with ``CostModelService("lstm", use_kernel=True)``;
    every served batch is one launch of the ids entry, and the xw entry
@@ -58,9 +64,11 @@ Phases, each printing JSON lines:
 7. ``tower``   — the tower kernel (K3, masked max-pool) against
    ``conv1d_stack_ref(mask)``, and ``conv_tower_apply(use_kernel=True)``
    against the plain tower path: COSTMODEL_BASE and COSTMODEL_OPERAND
-   widths, the reference tests' filter mixes, f32 and bf16, all-masked
-   rows, the ladder; an unmasked pool must miss by more than 10x the
-   limit. Its launches are counted over one ``conv_tower_apply`` run.
+   widths, the tile edges of the kernels phase, the reference tests'
+   filter mixes, f32 and bf16, all-masked rows, the ladder up to 256; an
+   unmasked pool, or one without the last tile's positions, must miss by
+   more than 10x the limit. Timed as K1 at B in {64, 1}. Its launches
+   are counted over one ``conv_tower_apply`` run.
 
 Then one ``{"kernels": [...]}`` line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -94,7 +102,9 @@ SPEARMAN_MIN = 0.99     # bf16 params vs float32 params
 EMB_SCALE = 100.0
 # lstm_init's embedding x50 gives input gates of about unit size
 LSTM_EMB_SCALE = 50.0
-LADDER = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+# the service's batch ladder up to its max_batch; K1's and K3's tile
+# changes with B along it
+LADDER = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 128, 256)
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # HBM3
@@ -184,6 +194,22 @@ def spearman(a, b) -> float:
     return float(np.corrcoef(ranks(a), ranks(b))[0, 1])
 
 
+def pool_cut_ref(ids, args, keep: int):
+    """The plain fused forward with a fault: its max-pool sees only the
+    first ``keep`` positions, as a kernel that lost the last tile's
+    partial would."""
+    import torch
+    from repro_torch.kernels import ref as REF
+    emb, conv_ws, conv_bs, fc_ws, fc_bs, head_w, head_b = args
+    h = emb[ids] * (ids != 0)[..., None].to(emb.dtype)
+    for w, b in zip(conv_ws, conv_bs):
+        h = torch.relu(REF.conv1d_same(h, w, b))
+    h = h[:, :keep].amax(dim=1)
+    for w, b in zip(fc_ws, fc_bs):
+        h = torch.relu(h @ w + b)
+    return h @ head_w + head_b
+
+
 def bound_ms(ids, args) -> tuple:
     """Least time the card could take for one fused forward on ``ids``:
     the larger of operations over the float32 peak and bytes over the
@@ -246,13 +272,40 @@ def phase_device() -> dict:
     return {"name": name, "nvidia_smi": smi}
 
 
+def ptxas_usage(lib: str) -> dict:
+    """Registers and spill bytes of each kernel entry in ``lib``'s build,
+    from nvcc's ptxas report, keyed "f32" / "bf16" (entries with another
+    template argument keep their mangled name)."""
+    import re
+    from repro_torch.kernels import _build
+    usage, name = {}, None
+    for ln in _build.build_log(lib).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            name = "f32" if "IfE" in name else \
+                "bf16" if "bfloat16" in name else name
+            usage.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            usage[name].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build, conv1d_stack, lstm_scan
     libs = [conv1d_stack.LIB, lstm_scan.LIB, conv1d_stack.TOWER_LIB]
     secs = _build.build_all(libs)
     ptxas = {lib: [ln.strip() for ln in _build.build_log(lib).splitlines()
                    if "registers" in ln or "spill" in ln] for lib in libs}
-    emit({"phase": "build", "seconds": secs, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": secs, "ptxas": ptxas,
+          "usage": {lib: ptxas_usage(lib) for lib in
+                    (conv1d_stack.LIB, conv1d_stack.TOWER_LIB)}})
 
 
 def phase_kernels() -> dict:
@@ -265,6 +318,7 @@ def phase_kernels() -> dict:
     from repro_torch.kernels import conv1d_stack as K
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as REF
+    from repro_torch.kernels.conv_tile_probe import time_queued
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -272,6 +326,11 @@ def phase_kernels() -> dict:
 
     def params_for(cfg, heads, dtype=None):
         return P.from_numpy(seeded_params(cfg, heads, 1), dev, dtype)
+
+    def base_plan(B, S):
+        cfg = COSTMODEL_BASE
+        return K.plan(B, S, cfg.embed_dim, cfg.conv_filters,
+                      cfg.conv_channels, cfg.fc_dims)
 
     def compare(cfg, heads, S, B, dtype=None, label=""):
         nonlocal max_err
@@ -294,8 +353,15 @@ def phase_kernels() -> dict:
             for B in (1, 5, 64):
                 cases.append(compare(COSTMODEL_BASE, heads, S, B,
                                      label="base_f32"))
-        cases.append(compare(COSTMODEL_OPERAND, heads, 1024, 5,
-                             label="operand_f32"))
+        # tile edges: S=200 is not a multiple of the tile (16 positions
+        # at B <= 16), and the operand mix alone in its batch (12 tiles of
+        # 90 positions with a halo of 45)
+        for B in (1, 5, 64):
+            cases.append(compare(COSTMODEL_BASE, heads, 200, B,
+                                 label="base_f32_ragged_tiles"))
+        for B in (1, 5):
+            cases.append(compare(COSTMODEL_OPERAND, heads, 1024, B,
+                                 label="operand_f32"))
         cases.append(compare(COSTMODEL_BASE, heads, 256, 64,
                              torch.bfloat16, label="base_bf16"))
         cases.append(compare(COSTMODEL_OPERAND, heads, 1024, 5,
@@ -324,9 +390,20 @@ def phase_kernels() -> dict:
     tf32 = float((REF.conv_forward_fused_ref(ids, *args) - got).abs().max())
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # ... and so does a plain version whose pool drops the last tile's
+    # positions, on rows with no PAD (each position may hold a max)
+    full_ids = torch.from_numpy(rng.integers(1, 8192, (64, 256))
+                                .astype(np.int32)).to(dev)
+    plan = base_plan(64, 256)
+    keep = (plan["n_tiles"] - 1) * plan["tile"]
+    miss["last_tile_dropped"] = float((pool_cut_ref(full_ids, args, keep)
+                                       - K.conv_forward_fused(full_ids, *args))
+                                      .abs().max())
+    check(miss["last_tile_dropped"] > 10 * TOL, f"a pool without the last "
+          f"tile misses by only {miss['last_tile_dropped']}")
     emit({"phase": "kernels", "case": "sensitivity",
           "zeroed_biases_err": miss, "tf32_plain_err": tf32,
-          "out_abs_max": float(got.abs().max())})
+          "positions_kept": keep, "out_abs_max": float(got.abs().max())})
 
     # bf16 params keep the f32 ranking of rows, per head
     ids = torch.from_numpy(ragged_ids(rng, 64, 256, 8192)).to(dev)
@@ -343,18 +420,21 @@ def phase_kernels() -> dict:
     # another position in its batch (row 0 of the full batch is all PAD,
     # so B=1 holds a real row)
     for S in (32, 256):
-        ids = torch.from_numpy(ragged_ids(rng, 65, S, 8192)).to(dev)
+        ids = torch.from_numpy(ragged_ids(rng, LADDER[-1] + 1, S,
+                                          8192)).to(dev)
         full = K.conv_forward_fused(ids, *a32)
         same = all(torch.equal(K.conv_forward_fused(
             ids[1:b + 1].contiguous(), *a32), full[1:b + 1])
             for b in LADDER)
+        tiles = {b: base_plan(b, S)["tile"] for b in LADDER}
         check(same, f"rows bit-identical across the batch ladder, S={S}")
         emit({"phase": "kernels", "case": "bit_identity", "S": S,
-              "ladder": list(LADDER), "identical": same})
+              "ladder": list(LADDER), "tile": tiles, "identical": same})
 
     # times at the main path's widths, kernel and plain version in turns
     timings = {}
-    for B in (64, 1):
+    usage = ptxas_usage(K.LIB)
+    for B in (64, 4, 1):
         ids = torch.from_numpy(ragged_ids(rng, B, 256, 8192)).to(dev)
         with torch.inference_mode():
             k_ms, p_ms = time_pair(lambda: K._launch(ids, *a32),
@@ -365,11 +445,16 @@ def phase_kernels() -> dict:
             w_ms, wc_ms = time_pair(
                 lambda: K.conv_forward_fused(ids, *a32, check_ids=False),
                 lambda: K.conv_forward_fused(ids, *a32))
+            # beside them: the card's time alone, and the host's
+            q_ms, h_ms = time_queued(lambda: K._launch(ids, *a32))
         b_ms, by, flops, nbytes = bound_ms(ids, a32)
         timings[B] = {"B": B, "S": 256, "ms": k_ms, "plain_ms": p_ms,
+                      "device_ms": q_ms, "host_ms": h_ms,
                       "wrapper_ms": w_ms, "checked_wrapper_ms": wc_ms,
                       "bound_ms": b_ms, "bound_by": by,
-                      "flops": flops, "bytes": nbytes}
+                      "flops": flops, "bytes": nbytes,
+                      "plan": base_plan(B, 256),
+                      "ptxas": usage.get("f32")}
         emit({"phase": "kernels", "case": "timing", **timings[B]})
     return {"max_abs_err": max_err, "timings": timings}
 
@@ -609,7 +694,7 @@ def phase_kernels_lstm() -> dict:
     # with its table and heads (row 0 of the full batch is all PAD)
     ladder = {}
     for S in (32, 256):
-        ids = torch.from_numpy(ragged_ids(rng, 65, S,
+        ids = torch.from_numpy(ragged_ids(rng, LADDER[-1] + 1, S,
                                           cfg.vocab_size)).to(dev)
         xw, mask = project(p32, ids)
         full = K2.lstm_scan_fused(xw, mask, p32["wh"])
@@ -698,6 +783,7 @@ def phase_tower() -> dict:
     from repro_torch.kernels import conv1d_stack as K
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as REF
+    from repro_torch.kernels.conv_tile_probe import time_queued
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -712,6 +798,10 @@ def phase_tower() -> dict:
         x = p["emb"][ids] * mask[..., None].to(p["emb"].dtype)
         return (x, [lyr["w"] for lyr in p["convs"]],
                 [lyr["b"] for lyr in p["convs"]], mask), p, ids
+
+    def plan_of(B, S, x, ws):
+        return K.tower_plan(B, S, x.shape[2], [w.shape[0] for w in ws],
+                            [w.shape[2] for w in ws])
 
     def compare(args, label, **info):
         nonlocal max_err
@@ -742,8 +832,13 @@ def phase_tower() -> dict:
             for B in (1, 5, 64):
                 compare(embedded(COSTMODEL_BASE, B, S, dt)[0], "base", B=B,
                         S=S, dtype=str(dt))
-        compare(embedded(COSTMODEL_OPERAND, 5, 1024, dt)[0], "operand",
-                B=5, S=1024, dtype=str(dt))
+        # tile edges, as in the kernels phase: S=200 is not a multiple of
+        # the tile, and the operand mix alone in its batch
+        for B in (1, 5):
+            compare(embedded(COSTMODEL_BASE, B, 200, dt)[0],
+                    "base_ragged_tiles", B=B, S=200, dtype=str(dt))
+            compare(embedded(COSTMODEL_OPERAND, B, 1024, dt)[0], "operand",
+                    B=B, S=1024, dtype=str(dt))
         # the reference tests' filter mixes on random x: every position
         # nonzero, pads included, so only the mask keeps them out
         for fs_list in ((2, 2, 2), (16, 16, 8, 8, 2, 1), (3, 5), (1,)):
@@ -781,23 +876,36 @@ def phase_tower() -> dict:
                       K.conv1d_stack_fused(x, ws, bs, mask)).abs().max())
     check(unmasked > 10 * TOL, f"an unmasked pool misses by only "
           f"{unmasked}: the masked-pool check cannot fail")
+    # a pool that lost the last tile's partial would miss too
+    plan = plan_of(64, 256, x, ws)
+    keep = (plan["n_tiles"] - 1) * plan["tile"]
+    cut = mask.clone()
+    cut[:, keep:] = 0
+    dropped = float((REF.conv1d_stack_ref(x, ws, bs, cut) -
+                     K.conv1d_stack_fused(x, ws, bs, mask)).abs().max())
+    check(dropped > 10 * TOL, f"a pool without the last tile misses by "
+          f"only {dropped}")
     emit({"phase": "tower", "case": "sensitivity",
-          "unmasked_pool_err": unmasked})
+          "unmasked_pool_err": unmasked, "last_tile_dropped_err": dropped,
+          "positions_kept": keep})
 
     # each row is bit-identical for every batch size of the ladder, at
     # another position in its batch (row 0 of the full batch is all PAD)
     for S in (32, 256):
-        x, ws, bs, mask = embedded(COSTMODEL_BASE, 65, S, None)[0]
+        x, ws, bs, mask = embedded(COSTMODEL_BASE, LADDER[-1] + 1, S,
+                                   None)[0]
         full = K.conv1d_stack_fused(x, ws, bs, mask)
         same = all(torch.equal(K.conv1d_stack_fused(
             x[1:b + 1].contiguous(), ws, bs, mask[1:b + 1].contiguous()),
             full[1:b + 1]) for b in LADDER)
+        tiles = {b: plan_of(b, S, x, ws)["tile"] for b in LADDER}
         check(same, f"tower rows bit-identical across the ladder, S={S}")
         emit({"phase": "tower", "case": "bit_identity", "S": S,
-              "ladder": list(LADDER), "identical": same})
+              "ladder": list(LADDER), "tile": tiles, "identical": same})
 
     # times at the main shape, kernel and plain version in turns
     timings = {}
+    usage = ptxas_usage(K.TOWER_LIB)
     for B in (64, 1):
         ids = torch.from_numpy(long_ids(rng, B, 256, 8192)).to(dev)
         (x, ws, bs, mask), _, _ = embedded(COSTMODEL_BASE, B, 256, None,
@@ -806,6 +914,8 @@ def phase_tower() -> dict:
             k_ms, p_ms = time_pair(
                 lambda: K._launch_tower(x, ws, bs, mask),
                 lambda: REF.conv1d_stack_ref(x, ws, bs, mask))
+            q_ms, h_ms = time_queued(
+                lambda: K._launch_tower(x, ws, bs, mask))
         flops = B * sum(2 * 256 * w.shape[0] * w.shape[1] * w.shape[2]
                         for w in ws)
         nbytes = x.numel() * x.element_size() + mask.numel() * 4 + sum(
@@ -813,9 +923,12 @@ def phase_tower() -> dict:
             + B * ws[-1].shape[2] * x.element_size()
         t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
         timings[B] = {"B": B, "S": 256, "ms": k_ms, "plain_ms": p_ms,
+                      "device_ms": q_ms, "host_ms": h_ms,
                       "bound_ms": max(t_ops, t_bytes) * 1e3,
                       "bound_by": "operations" if t_ops >= t_bytes
-                      else "bytes", "flops": flops, "bytes": nbytes}
+                      else "bytes", "flops": flops, "bytes": nbytes,
+                      "plan": plan_of(B, 256, x, ws),
+                      "ptxas": usage.get("f32")}
         emit({"phase": "tower", "case": "timing", **timings[B]})
 
     # the tower path: conv_tower_apply at the main shape, counted alone
@@ -876,6 +989,7 @@ def run_serve(phase: str, kind: str, params, kernel, plain,
     server.start(warmup=True)
     warm_s = time.perf_counter() - t1
     kernel.launches = 0                     # served batches from here on
+    forward_s0 = svc.phase_stats()["forward_s"]
     rows, lat = {}, []
     lock = threading.Lock()
     errors = []
@@ -903,6 +1017,7 @@ def run_serve(phase: str, kind: str, params, kernel, plain,
     wall = time.perf_counter() - t2
     check(not any(t.is_alive() for t in threads), "client threads ended")
     check(not errors, f"client errors {errors[:3]}")
+    forward_s = svc.phase_stats()["forward_s"] - forward_s0
     preds = server.predict_all(graphs[:8])
     snap = server.metrics_snapshot()
     server.stop()
@@ -950,7 +1065,9 @@ def run_serve(phase: str, kind: str, params, kernel, plain,
            "launches": launches, "max_abs_err_vs_plain": err,
            "identical_to_direct": identical,
            "setup_s": setup_s, "warmup_s": warm_s,
-           "phase_forward_s": snap["phase_forward_s"], "card": card}
+           "phase_forward_s": snap["phase_forward_s"],
+           "forward_ms_per_batch": forward_s * 1e3 / snap["batches"],
+           "card": card}
     emit(out)
     return out
 
@@ -997,7 +1114,7 @@ def main() -> int:
     lstm = phase_kernels_lstm()
     serve_lstm = phase_serve_lstm(dev["nvidia_smi"])
     tower = phase_tower()
-    t64, t1 = kern["timings"][64], kern["timings"][1]
+    t64, t4, t1 = (kern["timings"][b] for b in (64, 4, 1))
     l64, l1 = lstm["timings"][64], lstm["timings"][1]
     w64, w1 = tower["timings"][64], tower["timings"][1]
     emit({"kernels": [{
@@ -1011,9 +1128,15 @@ def main() -> int:
         if t64["bound_by"] == "operations" else "bytes",
         "shape": {"B": 64, "S": 256}, "wrapper_ms": t64["wrapper_ms"],
         "checked_wrapper_ms": t64["checked_wrapper_ms"],
-        "b1": {k: t1[k] for k in ("ms", "plain_ms", "wrapper_ms",
-                                  "checked_wrapper_ms", "bound_ms",
-                                  "bound_by")},
+        "device_ms": t64["device_ms"], "host_ms": t64["host_ms"],
+        "b4": {k: t4[k] for k in ("ms", "plain_ms", "device_ms", "host_ms",
+                                  "wrapper_ms", "checked_wrapper_ms",
+                                  "bound_ms", "bound_by", "plan")},
+        "b1": {k: t1[k] for k in ("ms", "plain_ms", "device_ms", "host_ms",
+                                  "wrapper_ms", "checked_wrapper_ms",
+                                  "bound_ms", "bound_by", "plan")},
+        "plan": t64["plan"], "ptxas": t64["ptxas"],
+        "serve_forward_ms_per_batch": serve["forward_ms_per_batch"],
         "card": dev["nvidia_smi"]}, {
         "name": "lstm_scan_ids", "route": "cuda",
         "source": LSTM_SOURCE, "replaces": LSTM_TPU_KERNEL,
@@ -1041,8 +1164,10 @@ def main() -> int:
         "ms": w64["ms"], "plain_ms": w64["plain_ms"],
         "bound_ms": w64["bound_ms"], "bound_by": w64["bound_by"],
         "library_ms": None, "shape": {"B": 64, "S": 256},
-        "b1": {k: w1[k] for k in ("ms", "plain_ms", "bound_ms",
-                                  "bound_by")},
+        "plan": w64["plan"], "ptxas": w64["ptxas"],
+        "device_ms": w64["device_ms"], "host_ms": w64["host_ms"],
+        "b1": {k: w1[k] for k in ("ms", "plain_ms", "device_ms", "host_ms",
+                                  "bound_ms", "bound_by", "plan")},
         "card": dev["nvidia_smi"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": torch.cuda.device_count()}})

@@ -169,11 +169,11 @@ class CostModelService:
         params = P.from_numpy(
             self.params, self._device,
             torch.bfloat16 if self.dtype == "bf16" else None)
-        if self.use_kernel and self.kind == "lstm":
-            # the input projection of every id and the stacked heads,
-            # once: the kernel reads the table by id (batch-invariant
-            # rows), and a served batch is one launch
-            params = KOPS.lstm_serving_params(params)
+        if self.use_kernel:
+            # the stacked heads (and the LSTM's input projection of every
+            # id) once: the LSTM kernel reads the table by id
+            # (batch-invariant rows), and a served batch is one launch
+            params = KOPS.serving_params(self.kind, params)
         self._apply = lambda ids: apply_fn(params, ids)
         self._vocab_rows = int(params["emb"].shape[0])
         self.heads = CM.model_heads(self.params) or (

@@ -5,10 +5,11 @@ into a shared library with a plain ``extern "C"`` interface, under
 ``build/repro_torch_kernels/`` at the root of the checkout (``.gitignore``
 lists ``build/``); ``$REPRO_TORCH_BUILD_DIR`` names another directory,
 and a package installed outside a checkout builds under the working
-directory's ``build/``. The file name carries a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads the
-library already built. A missing or failing ``nvcc`` raises with its
-output: there is no fallback.
+directory's ``build/``. The file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header rebuilds and an unchanged one loads the library already built. A
+missing or failing ``nvcc`` raises with its output: there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -61,19 +62,22 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to: the name carries a hash of the
+    source, every header beside it (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{key[:16]}.so"
 
 
 def _compile(name: str, out: Path) -> None:
+    nvcc = nvcc_path()
     out.parent.mkdir(parents=True, exist_ok=True)
     # compile to a private name, then rename: concurrent builders in
     # other processes never load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd: List[str] = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                      str(CSRC / f"{name}.cu")]
+    cmd: List[str] = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

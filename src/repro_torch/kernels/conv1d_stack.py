@@ -17,6 +17,7 @@ for CUDA tensors it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Sequence
 
@@ -35,15 +36,12 @@ _TOWER_ENTRY = {torch.float32: "conv_tower_f32",
                 torch.bfloat16: "conv_tower_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 _PLAN_ERRORS = {
     -1: "layer counts or sizes the kernel does not take (see kMaxConv "
-        "and kMaxFc in csrc/conv_forward.cu)",
-    -2: "activations that do not fit in shared memory even at one "
-        "position per tile"}
-
-
-def _ints(xs):
-    return (ctypes.c_int * max(len(xs), 1))(*xs)
+        "in csrc/conv_tile.cuh and kMaxFc in csrc/conv_forward.cu)",
+    -2: "activations and a staged tap of weights that do not fit in "
+        "shared memory even at one position per tile"}
 
 
 def _plan_error(code: int, seq, embed, filter_sizes, channels,
@@ -54,22 +52,78 @@ def _plan_error(code: int, seq, embed, filter_sizes, channels,
         f"{tuple(channels)}, fc {tuple(fc_dims)})")
 
 
-def plan_tile(seq: int, embed: int, filter_sizes: Sequence[int],
-              channels: Sequence[int], fc_dims: Sequence[int]) -> int:
-    """Output positions per tile: all of ``seq`` when the kernel's two
-    ping-pong activation buffers fit in shared memory, else as many as
-    fit. The layout and its limits live in ``csrc/conv_forward.cu``
-    (``plan``); this asks the built library. Raises ValueError when not
-    even one position fits (COSTMODEL_100M's 1024 channels) or the
-    kernel does not take these layer counts."""
-    fn = _build.load(LIB).conv_forward_plan_tile
-    fn.argtypes = [_I, _I, _I, _IP, _IP, _I, _IP]
+PLAN_KEYS = ("tile", "n_tiles", "blocks", "smem", "workspace")
+
+
+def plan(batch: int, seq: int, embed: int, filter_sizes: Sequence[int],
+         channels: Sequence[int], fc_dims: Sequence[int]) -> dict:
+    """The kernel's tile plan for a (batch, seq) launch: ``tile`` output
+    positions a block, ``n_tiles`` blocks a row, ``blocks`` in all,
+    ``smem`` bytes of shared memory a block and ``workspace`` bytes of
+    pooled partials and row counters. The rules live in
+    ``csrc/conv_tile.cuh`` (``tile_plan``); this asks the built library.
+    Raises ValueError when not even one position fits (COSTMODEL_100M's
+    1024 channels) or the kernel does not take these layer counts."""
+    return dict(zip(PLAN_KEYS, _forward_plan(
+        batch, seq, embed, tuple(filter_sizes), tuple(channels),
+        tuple(fc_dims))))
+
+
+@functools.lru_cache(maxsize=1024)
+def _forward_plan(batch, seq, embed, filter_sizes, channels, fc_dims):
+    fn = _build.load(LIB).conv_forward_plan
+    fn.argtypes = [_I, _I, _I, _I, _IP, _IP, _I, _IP, _LLP]
     fn.restype = ctypes.c_int
-    tile = fn(seq, embed, len(filter_sizes), _ints(filter_sizes),
-              _ints(channels), len(fc_dims), _ints(fc_dims))
-    if tile < 1:
-        raise _plan_error(tile, seq, embed, filter_sizes, channels, fc_dims)
-    return tile
+    info = (ctypes.c_longlong * len(PLAN_KEYS))()
+    rc = fn(batch, seq, embed, len(filter_sizes), _ints(filter_sizes),
+            _ints(channels), len(fc_dims), _ints(fc_dims), info)
+    if rc != 0:
+        raise _plan_error(rc, seq, embed, filter_sizes, channels, fc_dims)
+    return tuple(info)
+
+
+def _ptrs(ts) -> tuple:
+    return tuple(t.data_ptr() for t in ts)
+
+
+# ctypes arrays for a launch's pointer and size lists, built once for each
+# tuple of values (a service's params repeat on every call); an array
+# depends only on its key, so a cached one is never stale
+@functools.lru_cache(maxsize=256)
+def _ptr_array(ptrs: tuple):
+    return (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
+
+
+@functools.lru_cache(maxsize=256)
+def _ints(xs: tuple):
+    return (ctypes.c_int * max(len(xs), 1))(*xs)
+
+
+def _workspace(info, device) -> torch.Tensor:
+    """A launch's pooled partials and row counters, from PyTorch's caching
+    allocator on the current stream (the kernel zeroes the counters on
+    that stream), so launches on two streams never share one."""
+    return torch.empty(max(info[PLAN_KEYS.index("workspace")], 16),
+                       dtype=torch.uint8, device=device)
+
+
+def _on_device(device: torch.device, launch):
+    """``launch(stream)`` with the raw handle of ``device``'s current
+    stream, ``device`` being the current device for the call. The raw
+    handle and the guard only where it is needed: a Stream object and a
+    device guard on every launch cost ~10 us of host time on the H100's
+    host (``python -m repro_torch.kernels.conv_tile_probe``), where a
+    served batch's kernel takes ~40 us."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return launch(stream)
+    with torch.cuda.device(device):
+        return launch(stream)
+
+
+def _launch_error(lib: str, rc: int) -> str:
+    return _build.error_string(lib, rc) if rc > 0 else \
+        "workspace smaller than the plan's"
 
 
 def _entry(dtype: torch.dtype):
@@ -78,7 +132,7 @@ def _entry(dtype: torch.dtype):
     if fn.argtypes is None:
         pp = ctypes.POINTER(ctypes.c_void_p)
         fn.argtypes = [_P, _I, _I, _P, _I, _I, _I, pp, pp, _IP, _IP, _I,
-                       pp, pp, _IP, _P, _P, _I, _P, _P]
+                       pp, pp, _IP, _P, _P, _I, _P, _P, ctypes.c_size_t, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -181,32 +235,29 @@ def _launch(ids, emb, conv_weights, conv_biases, fc_weights, fc_biases,
     """Launch the kernel on checked CUDA tensors (no checks here: call
     :func:`conv_forward_fused`). Counts the launch."""
     B, S = ids.shape
-    fs = [int(w.shape[0]) for w in conv_weights]
-    c_out = [int(w.shape[2]) for w in conv_weights]
-    fc_out = [int(w.shape[1]) for w in fc_weights]
+    fs = tuple(w.shape[0] for w in conv_weights)
+    c_out = tuple(w.shape[2] for w in conv_weights)
+    fc_out = tuple(w.shape[1] for w in fc_weights)
+    E = emb.shape[1]
     out = torch.empty((B, head_w.shape[1]), dtype=torch.float32,
                       device=ids.device)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * max(len(ts), 1))(
-            *[t.data_ptr() for t in ts])
-
-    fn = _entry(emb.dtype)
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream(ids.device).cuda_stream
-        rc = fn(ids.data_ptr(), B, S, emb.data_ptr(), int(emb.shape[0]),
-                int(emb.shape[1]), len(fs), ptrs(conv_weights),
-                ptrs(conv_biases), _ints(fs), _ints(c_out), len(fc_out),
-                ptrs(fc_weights), ptrs(fc_biases), _ints(fc_out),
-                head_w.data_ptr(), head_b.data_ptr(), int(head_w.shape[1]),
-                out.data_ptr(), stream)
-    if rc in _PLAN_ERRORS:
-        raise _plan_error(rc, S, int(emb.shape[1]), fs, c_out, fc_out)
-    if rc != 0:
-        raise RuntimeError(f"conv_forward kernel launch failed ({rc}): "
-                           f"{_build.error_string(LIB, rc)}")
+    info = _forward_plan(B, S, E, fs, c_out, fc_out)
     if B == 0:
         return out
+    work = _workspace(info, ids.device)
+    fn = _entry(emb.dtype)
+    rc = _on_device(ids.device, lambda stream: fn(
+        ids.data_ptr(), B, S, emb.data_ptr(), emb.shape[0], E, len(fs),
+        _ptr_array(_ptrs(conv_weights)), _ptr_array(_ptrs(conv_biases)),
+        _ints(fs), _ints(c_out), len(fc_out), _ptr_array(_ptrs(fc_weights)),
+        _ptr_array(_ptrs(fc_biases)), _ints(fc_out), head_w.data_ptr(),
+        head_b.data_ptr(), head_w.shape[1], out.data_ptr(), work.data_ptr(),
+        work.numel(), stream))
+    if rc in _PLAN_ERRORS:
+        raise _plan_error(rc, S, E, fs, c_out, fc_out)
+    if rc != 0:
+        raise RuntimeError(f"conv_forward kernel launch failed ({rc}): "
+                           f"{_launch_error(LIB, rc)}")
     with _count_lock:
         conv_forward_fused.launches += 1
     return out
@@ -218,9 +269,8 @@ conv_forward_fused.launches = 0
 # ------------------------------------------------------------------ tower
 _TOWER_PLAN_ERRORS = {
     -1: "layer counts or sizes the kernel does not take (see kMaxConv in "
-        "csrc/conv_tower.cu)",
-    -2: "activations that do not fit in shared memory even at one "
-        "position per tile"}
+        "csrc/conv_tile.cuh)",
+    -2: _PLAN_ERRORS[-2]}
 
 
 def _tower_plan_error(code: int, seq, c_in, filter_sizes,
@@ -231,27 +281,35 @@ def _tower_plan_error(code: int, seq, c_in, filter_sizes,
         f"{tuple(channels)})")
 
 
-def tower_plan_tile(seq: int, c_in: int, filter_sizes: Sequence[int],
-                    channels: Sequence[int]) -> int:
-    """Output positions per tile of the tower kernel (``plan`` in
-    ``csrc/conv_tower.cu``; this asks the built library). Raises
+def tower_plan(batch: int, seq: int, c_in: int, filter_sizes: Sequence[int],
+               channels: Sequence[int]) -> dict:
+    """The tower kernel's tile plan, with :func:`plan`'s keys (the same
+    rules, ``csrc/conv_tile.cuh``; this asks the built library). Raises
     ValueError when not even one position fits or the kernel does not
     take these layer counts."""
-    fn = _build.load(TOWER_LIB).conv_tower_plan_tile
-    fn.argtypes = [_I, _I, _I, _IP, _IP]
+    return dict(zip(PLAN_KEYS, _tower_plan(
+        batch, seq, c_in, tuple(filter_sizes), tuple(channels))))
+
+
+@functools.lru_cache(maxsize=1024)
+def _tower_plan(batch, seq, c_in, filter_sizes, channels):
+    fn = _build.load(TOWER_LIB).conv_tower_plan
+    fn.argtypes = [_I, _I, _I, _I, _IP, _IP, _LLP]
     fn.restype = ctypes.c_int
-    tile = fn(seq, c_in, len(filter_sizes), _ints(filter_sizes),
-              _ints(channels))
-    if tile < 1:
-        raise _tower_plan_error(tile, seq, c_in, filter_sizes, channels)
-    return tile
+    info = (ctypes.c_longlong * len(PLAN_KEYS))()
+    rc = fn(batch, seq, c_in, len(filter_sizes), _ints(filter_sizes),
+            _ints(channels), info)
+    if rc != 0:
+        raise _tower_plan_error(rc, seq, c_in, filter_sizes, channels)
+    return tuple(info)
 
 
 def _tower_entry(dtype: torch.dtype):
     fn = getattr(_build.load(TOWER_LIB), _TOWER_ENTRY[dtype])
     if fn.argtypes is None:
         pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [_P, _P, _I, _I, _I, _I, pp, pp, _IP, _IP, _P, _P]
+        fn.argtypes = [_P, _P, _I, _I, _I, _I, pp, pp, _IP, _IP, _P, _P,
+                       ctypes.c_size_t, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -311,27 +369,24 @@ def conv1d_stack_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
 def _launch_tower(x, weights, biases, mask) -> torch.Tensor:
     """Launch the tower kernel on checked CUDA tensors (no checks here:
     call :func:`conv1d_stack_fused`). Counts the launch."""
-    B, S, c_in = (int(n) for n in x.shape)
-    fs = [int(w.shape[0]) for w in weights]
-    c_out = [int(w.shape[2]) for w in weights]
+    B, S, c_in = x.shape
+    fs = tuple(w.shape[0] for w in weights)
+    c_out = tuple(w.shape[2] for w in weights)
     out = torch.empty((B, c_out[-1]), dtype=x.dtype, device=x.device)
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-
+    info = _tower_plan(B, S, c_in, fs, c_out)
+    if B == 0:
+        return out
+    work = _workspace(info, x.device)
     fn = _tower_entry(x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), mask.data_ptr(), B, S, c_in, len(fs),
-                ptrs(weights), ptrs(biases), _ints(fs), _ints(c_out),
-                out.data_ptr(), stream)
+    rc = _on_device(x.device, lambda stream: fn(
+        x.data_ptr(), mask.data_ptr(), B, S, c_in, len(fs),
+        _ptr_array(_ptrs(weights)), _ptr_array(_ptrs(biases)), _ints(fs),
+        _ints(c_out), out.data_ptr(), work.data_ptr(), work.numel(), stream))
     if rc in _TOWER_PLAN_ERRORS:
         raise _tower_plan_error(rc, S, c_in, fs, c_out)
     if rc != 0:
         raise RuntimeError(f"conv_tower kernel launch failed ({rc}): "
-                           f"{_build.error_string(TOWER_LIB, rc)}")
-    if B == 0:
-        return out
+                           f"{_launch_error(TOWER_LIB, rc)}")
     with _count_lock:
         conv1d_stack_fused.launches += 1
     return out

@@ -10,66 +10,34 @@
 //   5. every head as one (F, n_heads) matmul + bias.
 // Params are float32 or bfloat16; all arithmetic and the output are f32.
 //
-// What bounds it on an H100 (SXM): at COSTMODEL_BASE (6 layers, fs=2,
-// 64 channels), B=64, S=256 the conv tower is sum 2*S*fs*Cin*Cout
-// ~= 25.2 MFLOP per row, ~1.61 GFLOP in all: ~24 us at the published
-// 67 TFLOP/s of float32 outside the tensor cores. The bytes it must move
-// (ids, the gathered embedding rows, the params, the output) are below
-// 4.6 MB: ~1.4 us at 3.35 TB/s. The float32 kernel is bound by
-// operations. It accumulates with plain FFMA, never TF32: TF32's 10-bit
-// mantissa puts a plain version about 1e-3 relative off the float32
-// reference, outside the 2e-4 parity at outputs of a few tenths
-// (chip_smoke.py reports the TF32 plain version's error). The bf16 path
-// could later reach the tensor cores.
-//
-// Design (simple and right first; making it fast -- wgmma, TMA, several
-// rows per block for small B -- is later work):
-//  * One thread block per batch row. Rows never share a reduction, so a
-//    row's output is bit-identical for every batch size B.
-//  * The embedding table (2 MiB f32 at COSTMODEL_BASE) does not fit in
-//    shared memory; rows are gathered from global memory, where the
-//    table stays resident in L2.
-//  * The sequence is cut into tiles of T output positions. A tile also
-//    computes a left halo of sum (fs-1)/2 and a right halo of sum fs/2
-//    positions, which it recomputes instead of exchanging. Two ping-pong
-//    activation buffers of (T + halo + kRows) x C_max f32 live in dynamic
-//    shared memory; plan() picks T so that they fit in 227 KB. plan() is
-//    the one place the layout and its limits are written: the wrapper
-//    asks it through conv_forward_plan_tile.
-//  * An id outside [0, V) reads as PAD, so the kernel never reads outside
-//    the table; the wrapper rejects such ids (on the host for the
+// What bounds it, and the tiled tower (a row's sequence tiles on
+// independent blocks, weights staged in shared memory a tap at a time, a
+// 4 x 4 register block a thread, the pool met once by the row's last
+// block), are in conv_tile.cuh, which conv_tower.cu shares. Here:
+//  * The gather: the embedding table (2 MiB f32 at COSTMODEL_BASE) stays
+//    in global memory, resident in L2; each tile gathers its own rows and
+//    halo. An id outside [0, V) reads as PAD, so the kernel never reads
+//    outside the table; the wrapper rejects such ids (on the host for the
 //    service's ids, by default with a device check).
-//  * "Same" padding is per layer and asymmetric: layer l pads (fs-1)/2
-//    on the left and fs/2 on the right, and w[k] multiplies
-//    x[t - (fs-1)/2 + k]. Every layer's input at a position outside
-//    [0, S) must be ZERO, so each layer writes 0 there, never
-//    relu(bias).
-//  * The max-pool is a running max per channel across tiles; max is
-//    exact in any order. The FC stack and the heads then run in the same
-//    block on the pooled vector, with weights read from global memory.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+//  * The epilogue in the row's last block: each FC output's k is split
+//    over up to kThreads / Fout threads (coalesced weight reads from L2),
+//    and the parts are summed in part order, so a row's bits never depend
+//    on B or on the order the tiles arrived in.
+// One served batch is one cudaMemsetAsync (the row counters) and one
+// kernel launch.
+#include "conv_tile.cuh"
 
 namespace {
 
-constexpr int kMaxConv = 8;        // conv layers the param block holds
+using namespace conv_tile;
+
 constexpr int kMaxFc = 4;          // hidden FC layers
-constexpr int kThreads = 256;
-constexpr int kRows = 4;           // output rows per thread; the buffers
-                                   // carry kRows spare rows for it
-constexpr int kSmemLimit = 232448; // 227 KB a block may opt in to
 
 template <typename T>
 struct Net {
+  Tower<T> tower;
   const T* emb;
   int vocab;
-  int embed;
-  int n_conv;
-  const T* conv_w[kMaxConv];       // (fs, Cin, Cout) each
-  const T* conv_b[kMaxConv];       // (Cout,)
-  int fs[kMaxConv];
-  int c_out[kMaxConv];
   int n_fc;
   const T* fc_w[kMaxFc];           // (Fin, Fout)
   const T* fc_b[kMaxFc];
@@ -77,200 +45,122 @@ struct Net {
   const T* head_w;                 // (F, n_heads), heads stacked
   const T* head_b;                 // (n_heads,)
   int n_heads;
-  int ldc;                         // activation row stride (max width)
   int f_max;                       // widest hidden FC layer
-  int halo_l, halo_r, tile;
 };
 
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// hout[o] = act(b[o] + sum_k hin[k] w[k][o]) with k split over parts
+// threads an output; the parts add up in part order
+template <typename T>
+__device__ void dense(const float* hin, int f_in, const T* __restrict__ w,
+                      const T* __restrict__ b, int f_out, float* scratch,
+                      bool relu, float* hout, float* gout) {
+  const int tid = threadIdx.x;
+  int parts = f_out < kThreads ? kThreads / f_out : 1;
+  if (parts > f_in) parts = f_in;
+  const int chunk = (f_in + parts - 1) / parts;
+  for (int i = tid; i < parts * f_out; i += kThreads) {
+    const int o = i % f_out, k0 = (i / f_out) * chunk;
+    const int k1 = k0 + chunk < f_in ? k0 + chunk : f_in;
+    float acc = parts == 1 ? ld(b + o) : 0.f;
+#pragma unroll 16
+    for (int k = k0; k < k1; ++k)
+      acc = fmaf(hin[k], ld(w + (size_t)k * f_out + o), acc);
+    if (parts == 1) {
+      const float v = relu ? fmaxf(acc, 0.f) : acc;
+      if (hout) hout[o] = v;
+      if (gout) gout[o] = v;
+    } else {
+      scratch[i] = acc;
+    }
+  }
+  if (parts > 1) {
+    __syncthreads();
+    for (int o = tid; o < f_out; o += kThreads) {
+      float acc = ld(b + o);
+      for (int q = 0; q < parts; ++q) acc += scratch[q * f_out + o];
+      const float v = relu ? fmaxf(acc, 0.f) : acc;
+      if (hout) hout[o] = v;
+      if (gout) gout[o] = v;
+    }
+  }
+  __syncthreads();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv_forward_kernel(const int* __restrict__ ids, int S, const Net<T> net,
+__global__ void __launch_bounds__(kThreads, 3)
+conv_forward_kernel(const int* __restrict__ ids, int S,
+                    const __grid_constant__ Net<T> net,
                     float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int span = net.tile + net.halo_l + net.halo_r;
-  const int rows = span + kRows;
-  const int ldc = net.ldc;
-  float* buf0 = smem;
-  float* buf1 = buf0 + rows * ldc;
-  const int c_last = net.c_out[net.n_conv - 1];
-  float* pooled = buf1 + rows * ldc;            // (c_last,)
-  float* h0 = pooled + c_last;                  // (f_max,)
-  float* h1 = h0 + net.f_max;                   // (f_max,)
+  extern __shared__ __align__(16) float smem[];
+  const Tower<T>& tw = net.tower;
+  const Smem s = carve(tw, smem);
+  const int row = blockIdx.x / tw.n_tiles, tile = blockIdx.x % tw.n_tiles;
+  const int* row_ids = ids + (size_t)row * S;
+  const int E = tw.c_in, E4 = round4(E);
 
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int* row_ids = ids + (size_t)blockIdx.x * S;
-
-  for (int c = tid; c < c_last; c += nt) pooled[c] = -INFINITY;
-
-  for (int t0 = 0; t0 < S; t0 += net.tile) {
-    // buffer row r holds sequence position base + r
-    const int base = t0 - net.halo_l;
-    // gather: positions outside [0, S) and PAD ids give zero rows
-    const int E = net.embed;
-    for (int i = tid; i < span * E; i += nt) {
-      const int r = i / E, e = i - r * E;
+  // gather: positions outside [0, S) and PAD ids give zero rows
+  auto gather = [&](float* buf, int span, int ldc, int base) {
+    for (int i = threadIdx.x; i < span * E4; i += kThreads) {
+      const int r = i / E4, e = i - r * E4;
       const int p = base + r;
       const int id = (p >= 0 && p < S) ? row_ids[p] : 0;
-      buf0[r * ldc + e] = id > 0 && id < net.vocab
-                              ? ld(net.emb + (size_t)id * E + e)
-                              : 0.f;
+      buf[r * ldc + e] = e < E && id > 0 && id < net.vocab
+                             ? ld(net.emb + (size_t)id * E + e)
+                             : 0.f;
     }
-    __syncthreads();
-
-    float* in = buf0;
-    float* nxt = buf1;
-    int lo = 0, hi = span, c_in = E;
-    for (int l = 0; l < net.n_conv; ++l) {
-      const int fs = net.fs[l];
-      const int pad_l = (fs - 1) / 2, pad_r = fs / 2;
-      const int c_out = net.c_out[l];
-      const int olo = lo + pad_l, ohi = hi - pad_r;
-      const int groups = (ohi - olo + kRows - 1) / kRows;
-      const T* __restrict__ w = net.conv_w[l];
-      const T* __restrict__ bias = net.conv_b[l];
-      for (int i = tid; i < groups * c_out; i += nt) {
-        const int co = i % c_out;
-        const int r0 = olo + (i / c_out) * kRows;
-        const float bv = ld(bias + co);
-        float acc[kRows];
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) acc[j] = bv;
-        for (int k = 0; k < fs; ++k) {
-          // rows past ohi read spare or stale rows; their sums are dropped
-          const float* x = in + (r0 - pad_l + k) * ldc;
-          const T* wk = w + (size_t)k * c_in * c_out + co;
-#pragma unroll 4
-          for (int ci = 0; ci < c_in; ++ci) {
-            const float wv = ld(wk + (size_t)ci * c_out);
-#pragma unroll
-            for (int j = 0; j < kRows; ++j)
-              acc[j] = fmaf(x[j * ldc + ci], wv, acc[j]);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          const int r = r0 + j;
-          if (r < ohi) {
-            const int p = base + r;
-            nxt[r * ldc + co] = (p >= 0 && p < S) ? fmaxf(acc[j], 0.f) : 0.f;
-          }
-        }
-      }
-      __syncthreads();
-      float* t = in;
-      in = nxt;
-      nxt = t;
-      lo = olo;
-      hi = ohi;
-      c_in = c_out;
-    }
-    // rows [lo, hi) are now the tile's own positions [t0, t0 + tile)
-    for (int c = tid; c < c_last; c += nt) {
-      float m = pooled[c];
-      for (int r = lo; r < hi && base + r < S; ++r)
-        m = fmaxf(m, in[r * ldc + c]);
-      pooled[c] = m;
-    }
-    __syncthreads();
-  }
+  };
+  auto every = [](int) { return true; };
+  if (!tower_tile(tw, s, S, row, tile, gather, every)) return;
 
   // hidden FC stack, then every head as one matmul
-  const float* hin = pooled;
-  int f_in = c_last;
+  const float* hin = s.pooled;
+  int f_in = tw.c_out[tw.n_conv - 1];
+  float* h0 = s.tail;
+  float* h1 = s.tail + net.f_max;
   for (int l = 0; l < net.n_fc; ++l) {
-    const int f_out = net.fc_out[l];
     float* hout = (l & 1) ? h1 : h0;
-    const T* __restrict__ w = net.fc_w[l];
-    for (int o = tid; o < f_out; o += nt) {
-      float acc = ld(net.fc_b[l] + o);
-      for (int k = 0; k < f_in; ++k)
-        acc = fmaf(hin[k], ld(w + (size_t)k * f_out + o), acc);
-      hout[o] = fmaxf(acc, 0.f);
-    }
-    __syncthreads();
+    dense(hin, f_in, net.fc_w[l], net.fc_b[l], net.fc_out[l], s.scratch, true,
+          hout, nullptr);
     hin = hout;
-    f_in = f_out;
+    f_in = net.fc_out[l];
   }
-  for (int o = tid; o < net.n_heads; o += nt) {
-    float acc = ld(net.head_b + o);
-    for (int k = 0; k < f_in; ++k)
-      acc = fmaf(hin[k], ld(net.head_w + (size_t)k * net.n_heads + o), acc);
-    out[(size_t)blockIdx.x * net.n_heads + o] = acc;
-  }
+  dense(hin, f_in, net.head_w, net.head_b, net.n_heads, s.scratch, false,
+        nullptr, out + (size_t)row * net.n_heads);
 }
 
-// The tile plan, the one place the shared-memory layout and the kernel's
-// limits are decided. Dynamic shared memory holds two ping-pong buffers of
-// (tile + halo_l + halo_r + kRows) x ldc floats, the pooled vector
-// (c_last) and two FC scratch vectors (f_max each). tile is all of S when
-// that fits in kSmemLimit, else as many positions as fit; 0 when not even
-// one does; -1 for layer counts or sizes the kernel does not take.
-struct Plan {
-  int tile = -1, halo_l = 0, halo_r = 0, ldc = 0, f_max = 1;
-  size_t smem = 0;
-};
-
-Plan plan(int S, int embed, int n_conv, const int* fs, const int* c_out,
-          int n_fc, const int* fc_out) {
-  Plan p;
-  if (S < 1 || embed < 1 || n_conv < 1 || n_conv > kMaxConv || n_fc < 0 ||
-      n_fc > kMaxFc)
-    return p;
-  p.ldc = embed;
-  for (int l = 0; l < n_conv; ++l) {
-    if (fs[l] < 1 || c_out[l] < 1) return p;
-    p.halo_l += (fs[l] - 1) / 2;
-    p.halo_r += fs[l] / 2;
-    if (c_out[l] > p.ldc) p.ldc = c_out[l];
-  }
+Plan plan(int B, int S, int embed, int n_conv, const int* fs,
+          const int* c_out, int n_fc, const int* fc_out, int* f_max) {
+  *f_max = 1;
+  if (n_fc < 0 || n_fc > kMaxFc) return Plan();
   for (int l = 0; l < n_fc; ++l) {
-    if (fc_out[l] < 1) return p;
-    if (fc_out[l] > p.f_max) p.f_max = fc_out[l];
+    if (fc_out[l] < 1) return Plan();
+    if (fc_out[l] > *f_max) *f_max = fc_out[l];
   }
-  const long fixed = c_out[n_conv - 1] + 2L * p.f_max;
-  const long rows = (kSmemLimit / (long)sizeof(float) - fixed) / (2L * p.ldc);
-  long tile = rows - p.halo_l - p.halo_r - kRows;
-  if (tile > S) tile = S;
-  if (tile < 1) {
-    p.tile = 0;
-    return p;
-  }
-  p.tile = (int)tile;
-  p.smem = (size_t)(2L * (tile + p.halo_l + p.halo_r + kRows) * p.ldc +
-                    fixed) * sizeof(float);
-  return p;
+  return tile_plan(B, S, embed, n_conv, fs, c_out, 2L * *f_max);
 }
 
-// Returns 0, a cudaError_t, -1 (unsupported layer counts or sizes) or -2
-// (not even one position per tile fits in shared memory).
+// Returns 0, a cudaError_t, -1 (unsupported layer counts or sizes), -2
+// (not even one position per tile fits in shared memory) or -3 (the
+// workspace is smaller than the plan's).
 template <typename T>
 int launch(const int* ids, int B, int S, const void* emb, int vocab,
            int embed, int n_conv, const void* const* conv_w,
            const void* const* conv_b, const int* fs, const int* c_out,
            int n_fc, const void* const* fc_w, const void* const* fc_b,
            const int* fc_out, const void* head_w, const void* head_b,
-           int n_heads, float* out, void* stream) {
-  const Plan p = plan(S, embed, n_conv, fs, c_out, n_fc, fc_out);
+           int n_heads, float* out, void* workspace, size_t workspace_bytes,
+           void* stream) {
+  int f_max;
+  const Plan p = plan(B, S, embed, n_conv, fs, c_out, n_fc, fc_out, &f_max);
   if (p.tile < 0 || B < 0 || n_heads < 1 || vocab < 1) return -1;
   if (p.tile == 0) return -2;
+  if (B == 0) return 0;
+  if (workspace_bytes < p.workspace) return -3;
   Net<T> net = {};
+  fill_tower(net.tower, p, embed, n_conv, conv_w, conv_b, fs, c_out, B,
+             workspace);
   net.emb = static_cast<const T*>(emb);
   net.vocab = vocab;
-  net.embed = embed;
-  net.n_conv = n_conv;
-  for (int l = 0; l < n_conv; ++l) {
-    net.conv_w[l] = static_cast<const T*>(conv_w[l]);
-    net.conv_b[l] = static_cast<const T*>(conv_b[l]);
-    net.fs[l] = fs[l];
-    net.c_out[l] = c_out[l];
-  }
   net.n_fc = n_fc;
   for (int l = 0; l < n_fc; ++l) {
     net.fc_w[l] = static_cast<const T*>(fc_w[l]);
@@ -280,21 +170,9 @@ int launch(const int* ids, int B, int S, const void* emb, int vocab,
   net.head_w = static_cast<const T*>(head_w);
   net.head_b = static_cast<const T*>(head_b);
   net.n_heads = n_heads;
-  net.ldc = p.ldc;
-  net.f_max = p.f_max;
-  net.halo_l = p.halo_l;
-  net.halo_r = p.halo_r;
-  net.tile = p.tile;
-  if (B == 0) return 0;
-  // the opt-in is per device, so it is set on every launch (it is cheap)
-  const cudaError_t attr = cudaFuncSetAttribute(
-      conv_forward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)p.smem);
-  if (attr != cudaSuccess) return (int)attr;
-  conv_forward_kernel<T><<<B, kThreads, p.smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      ids, S, net, out);
-  return (int)cudaGetLastError();
+  net.f_max = f_max;
+  return launch_tiles(conv_forward_kernel<T>, p, B, workspace,
+                      static_cast<cudaStream_t>(stream), ids, S, net, out);
 }
 
 }  // namespace
@@ -304,11 +182,13 @@ int launch(const int* ids, int B, int S, const void* emb, int vocab,
       int n_conv, const void *const *conv_w, const void *const *conv_b,   \
       const int *fs, const int *c_out, int n_fc, const void *const *fc_w, \
       const void *const *fc_b, const int *fc_out, const void *head_w,     \
-      const void *head_b, int n_heads, float *out, void *stream
+      const void *head_b, int n_heads, float *out, void *workspace,       \
+      size_t workspace_bytes, void *stream
 
 #define CONV_FORWARD_PASS                                                  \
   ids, B, S, emb, vocab, embed, n_conv, conv_w, conv_b, fs, c_out, n_fc,   \
-      fc_w, fc_b, fc_out, head_w, head_b, n_heads, out, stream
+      fc_w, fc_b, fc_out, head_w, head_b, n_heads, out, workspace,         \
+      workspace_bytes, stream
 
 extern "C" int conv_forward_f32(CONV_FORWARD_ARGS) {
   return launch<float>(CONV_FORWARD_PASS);
@@ -318,13 +198,22 @@ extern "C" int conv_forward_bf16(CONV_FORWARD_ARGS) {
   return launch<__nv_bfloat16>(CONV_FORWARD_PASS);
 }
 
-// Output positions per tile for these sizes (see plan()), or launch()'s
-// codes: -1 for unsupported sizes, -2 when not even one position fits.
-extern "C" int conv_forward_plan_tile(int S, int embed, int n_conv,
-                                      const int* fs, const int* c_out,
-                                      int n_fc, const int* fc_out) {
-  const int tile = plan(S, embed, n_conv, fs, c_out, n_fc, fc_out).tile;
-  return tile == 0 ? -2 : tile;
+// The plan for these sizes (see conv_tile::tile_plan): info receives
+// tile, n_tiles, blocks, shared memory bytes a block and workspace bytes.
+// Returns 0, or launch()'s codes -1 (unsupported sizes) and -2 (not even
+// one position fits).
+extern "C" int conv_forward_plan(int B, int S, int embed, int n_conv,
+                                 const int* fs, const int* c_out, int n_fc,
+                                 const int* fc_out, long long* info) {
+  int f_max;
+  const Plan p = plan(B, S, embed, n_conv, fs, c_out, n_fc, fc_out, &f_max);
+  if (p.tile < 1) return p.tile == 0 ? -2 : -1;
+  info[0] = p.tile;
+  info[1] = p.n_tiles;
+  info[2] = (long long)B * p.n_tiles;
+  info[3] = (long long)p.smem;
+  info[4] = (long long)p.workspace;
+  return 0;
 }
 
 extern "C" const char* conv_forward_error_string(int code) {

@@ -64,8 +64,11 @@ def _stacked_heads(params):
 
 def fused_args(params):
     """:func:`conv_forward_fused`'s arguments after the ids, from a param
-    tree, and the head names of the output columns (None: single-head)."""
-    head_w, head_b, names = _stacked_heads(params)
+    tree, and the head names of the output columns (None: single-head).
+    ``params["stacked_heads"]`` is used when the caller precomputed it
+    (:func:`serving_params`, as the service does)."""
+    head_w, head_b, names = params.get("stacked_heads") or \
+        _stacked_heads(params)
     hidden_fc = params["fc"] if names is not None else params["fc"][:-1]
     return (params["emb"],
             [lyr["w"] for lyr in params["convs"]],
@@ -103,6 +106,16 @@ def lstm_serving_params(params):
     (``stacked_heads``), so a batch is one kernel launch."""
     return dict(params, xw_table=lstm_xw_table(params),
                 stacked_heads=_stacked_heads(params))
+
+
+def serving_params(kind: str, params):
+    """``params`` with what every served batch of ``kind``'s fused forward
+    reads computed once, so no batch recomputes it: the stacked heads
+    (conv1d), and the projection table too (lstm,
+    :func:`lstm_serving_params`)."""
+    if kind == "lstm":
+        return lstm_serving_params(params)
+    return dict(params, stacked_heads=_stacked_heads(params))
 
 
 def lstm_forward_apply(params, ids: torch.Tensor, *,

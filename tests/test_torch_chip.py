@@ -150,20 +150,45 @@ def test_unchecked_out_of_range_id_reads_as_pad(cuda, bad):
     assert torch.equal(got[DEFAULT_HEADS[0]][0], want[DEFAULT_HEADS[0]][0])
 
 
+def _halo(filters):
+    return sum((f - 1) // 2 + f // 2 for f in filters)
+
+
+def _assert_plan_rules(plan_at, S, halo):
+    """The rules of csrc/conv_tile.cuh's tile_plan: tiles of at least
+    twice the halo (or all of S), n_tiles covering S, one block a tile,
+    shared memory within 227 KB; more tiles a row at small B, and a
+    batch of 64 spread over at least two blocks an SM."""
+    plans = {B: plan_at(B) for B in (1, 4, 64, 256)}
+    for B, p in plans.items():
+        assert p["tile"] >= min(2 * halo, S), (B, p)
+        assert p["n_tiles"] == -(-S // p["tile"]), (B, p)
+        assert p["blocks"] == B * p["n_tiles"], (B, p)
+        assert 0 < p["smem"] <= 232448, (B, p)
+        assert p["workspace"] >= B * p["n_tiles"] * 4, (B, p)
+    return plans
+
+
 def test_plan_tile(cuda):
-    """The tile plan of csrc/conv_forward.cu: one tile for a whole
-    COSTMODEL_BASE row, several with halos for the operand mix at
-    S=1024, a ValueError at COSTMODEL_100M's 1024 channels."""
+    """The tile plan of csrc/conv_forward.cu (conv_tile.cuh's rules):
+    a COSTMODEL_BASE row over more tiles at B=1 than at B=64, whose 5
+    tiles a row fill 2 x 132 SMs; the operand mix at S=1024 in tiles of
+    at least twice its halo of 45; a ValueError at COSTMODEL_100M's 1024
+    channels."""
     base, op = CFGS.COSTMODEL_BASE, CFGS.COSTMODEL_OPERAND
-    assert K.plan_tile(256, base.embed_dim, base.conv_filters,
-                       base.conv_channels, base.fc_dims) == 256
-    tile = K.plan_tile(1024, op.embed_dim, op.conv_filters,
-                       op.conv_channels, op.fc_dims)
-    assert 1 <= tile < 1024
+    plans = _assert_plan_rules(lambda B: K.plan(
+        B, 256, base.embed_dim, base.conv_filters, base.conv_channels,
+        base.fc_dims), 256, _halo(base.conv_filters))
+    assert plans[1]["n_tiles"] > plans[64]["n_tiles"] > 1
+    assert plans[64]["blocks"] >= 2 * 132
+    ops_plans = _assert_plan_rules(lambda B: K.plan(
+        B, 1024, op.embed_dim, op.conv_filters, op.conv_channels,
+        op.fc_dims), 1024, _halo(op.conv_filters))
+    assert ops_plans[1]["tile"] >= 90 and ops_plans[1]["n_tiles"] > 1
     big = CFGS.COSTMODEL_100M
     with pytest.raises(ValueError, match="shared memory"):
-        K.plan_tile(1024, big.embed_dim, big.conv_filters,
-                    big.conv_channels, big.fc_dims)
+        K.plan(1, 1024, big.embed_dim, big.conv_filters, big.conv_channels,
+               big.fc_dims)
 
 
 def test_wrapper_rejects_too_many_layers_on_card(cuda):
@@ -382,14 +407,62 @@ def test_tower_apply_matches_plain_path(cuda):
 
 def test_tower_plan_tile(cuda):
     base, op = CFGS.COSTMODEL_BASE, CFGS.COSTMODEL_OPERAND
-    assert K.tower_plan_tile(256, base.embed_dim, base.conv_filters,
-                             base.conv_channels) == 256
-    assert 1 <= K.tower_plan_tile(1024, op.embed_dim, op.conv_filters,
-                                  op.conv_channels) < 1024
+    plans = _assert_plan_rules(lambda B: K.tower_plan(
+        B, 256, base.embed_dim, base.conv_filters, base.conv_channels),
+        256, _halo(base.conv_filters))
+    assert plans[1]["n_tiles"] > plans[64]["n_tiles"] > 1
+    _assert_plan_rules(lambda B: K.tower_plan(
+        B, 1024, op.embed_dim, op.conv_filters, op.conv_channels), 1024,
+        _halo(op.conv_filters))
     big = CFGS.COSTMODEL_100M
     with pytest.raises(ValueError, match="shared memory"):
-        K.tower_plan_tile(1024, big.embed_dim, big.conv_filters,
-                          big.conv_channels)
+        K.tower_plan(1, 1024, big.embed_dim, big.conv_filters,
+                     big.conv_channels)
+
+
+def test_rows_bit_identical_at_b1_and_b256(cuda):
+    """A row alone (16 tiles of 16 positions) and in a batch of the
+    service's max_batch of 256 (5 tiles of 52) has the same bits, through
+    K1 and through K3, at every position of a few rows."""
+    cfg = CFGS.COSTMODEL_BASE
+    pt = card_params(cfg, DEFAULT_HEADS, cuda, seed=2)
+    args, _ = ops.fused_args(pt)
+    ids = torch.from_numpy(ragged_ids(np.random.default_rng(9), 256, 256,
+                                      cfg.vocab_size)).to(cuda)
+    mask = (ids != 0).float()
+    x = pt["emb"][ids] * mask[..., None]
+    ws = [lyr["w"] for lyr in pt["convs"]]
+    bs = [lyr["b"] for lyr in pt["convs"]]
+    full = K.conv_forward_fused(ids, *args)
+    tower = K.conv1d_stack_fused(x, ws, bs, mask)
+    for r in (1, 2, 100, 255):
+        assert torch.equal(K.conv_forward_fused(ids[r:r + 1], *args),
+                           full[r:r + 1]), r
+        assert torch.equal(K.conv1d_stack_fused(
+            x[r:r + 1], ws, bs, mask[r:r + 1]), tower[r:r + 1]), r
+
+
+def test_two_streams_at_once_give_plain_rows(cuda):
+    """K1 launched on two streams at once, each with its own workspace
+    and row counters, gives the plain version's rows on both."""
+    cfg = CFGS.COSTMODEL_BASE
+    pt = card_params(cfg, DEFAULT_HEADS, cuda, seed=3)
+    args, _ = ops.fused_args(pt)
+    rng = np.random.default_rng(10)
+    batches = [torch.from_numpy(ragged_ids(rng, B, 256, cfg.vocab_size))
+               .to(cuda) for B in (4, 64)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in batches]
+    outs = []
+    for _ in range(20):
+        for st, ids in zip(streams, batches):
+            with torch.cuda.stream(st):
+                outs.append(K.conv_forward_fused(ids, *args,
+                                                 check_ids=False))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        want = REF.conv_forward_fused_ref(batches[i % 2], *args)
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
 
 
 @pytest.fixture

@@ -122,6 +122,21 @@ def _ids(B=3, S=16):
                                        COSTMODEL_SMALL.vocab_size))
 
 
+@pytest.mark.parametrize("heads", [None, RM.DEFAULT_HEADS])
+def test_conv_serving_params_give_the_same_rows(heads):
+    """The service's precomputed stacked heads give the rows
+    conv_forward_apply computes from the params alone, bit for bit, and
+    serving_params leaves the conv params as they were."""
+    pt = P.from_numpy(ref_params(COSTMODEL_SMALL, heads), "cpu")
+    served = T_OPS.serving_params("conv1d", pt)
+    assert all(served[k] is pt[k] for k in pt)
+    ids = _ids(B=4, S=32)
+    a = T_OPS.conv_forward_apply(pt, ids)
+    b = T_OPS.conv_forward_apply(served, ids)
+    for t in (heads or [None]):
+        assert torch.equal(a[t] if t else a, b[t] if t else b)
+
+
 @pytest.mark.parametrize("case", ["int64", "too_big", "negative",
                                   "noncontig", "mixed_dtype", "bad_chain",
                                   "one_dim", "bad_heads"])
@@ -199,6 +214,22 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.load("conv_forward")
     key = _build.library_path("conv_forward")
     assert key.parent == tmp_path / "build" and key.suffix == ".so"
+
+
+def test_library_name_follows_the_shared_header(monkeypatch, tmp_path):
+    """K1 and K3 include csrc/conv_tile.cuh: editing it rebuilds both."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in ("conv_forward",
+                                                  "conv_tower")}
+    for name in before:
+        assert '#include "conv_tile.cuh"' in (csrc / f"{name}.cu").read_text()
+    with open(csrc / "conv_tile.cuh", "a") as f:
+        f.write("// edited\n")
+    for name, path in before.items():
+        assert _build.library_path(name) != path, name
 
 
 def test_build_dir_is_the_checkout_or_named(monkeypatch, tmp_path):

@@ -69,6 +69,21 @@ Phases, each printing JSON lines:
    unmasked pool, or one without the last tile's positions, must miss by
    more than 10x the limit. Timed as K1 at B in {64, 1}. Its launches
    are counted over one ``conv_tower_apply`` run.
+8. ``train``   — ``TrainEngine`` on the card, COSTMODEL_BASE multi-head,
+   the serve phases' dataset (split 0.1), B=64, bucketed. With the TF32
+   switches at torch's defaults for that step only: a default
+   (``use_kernel=False``) card service within 2e-4 of a CPU service, and
+   one loss's gradients within TRAIN_GRAD_RTOL of the CPU's, which the
+   plain conv without its precision guard (TF32) must miss. Then 200
+   steps under deterministic algorithms with checkpoints every 50; a
+   second run killed at step 120 and resumed from step 100 must land on
+   its params (rtol 1e-6, atol 1e-7); the last loss below half the
+   first; ``evaluate`` finite for every head; the first 10 losses within
+   TRAIN_LOSS_RTOL of the same engine on the CPU (stopped at step 10 by
+   the supervisor's SIGTERM preemption). The trained params are served
+   through K1 (conv1d) and, after 20 LSTM steps, K2: rows within 2e-4
+   of the plain card forward, one launch a batch. Reports ms a step for
+   both (conv1d after 50 steps of warm-up).
 
 Then one ``{"kernels": [...]}`` line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -79,6 +94,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -96,6 +112,19 @@ TOL_LSTM_SMALL = 1e-5
 # accumulation-order noise
 BF16_REL, BF16_ABS = 2.0 ** -7, 1e-5
 SPEARMAN_MIN = 0.99     # bf16 params vs float32 params
+# train phase, card against CPU, both float32 summing in other orders
+# (cuDNN and cuBLAS against oneDNN). One loss's gradients as a relative
+# L2 distance over all leaves, on the dataset's rows (measured on the
+# card: 5.1e-7 in IEEE float32, 6.0e-4 with TF32 convolutions). Where a
+# ReLU input lies within rounding of 0 its gate opens on one side only,
+# whatever the precision: a batch of random tokens did that (the card's
+# float32 1.5e-3 from its own float64), which this check cannot tell
+# from TF32. The first 10 training losses, relative: AdamW's first steps
+# move each component by about lr whatever its size, so a component
+# whose gradient is rounding noise steps either way (measured: 1.4e-7 at
+# step 2 growing to 9.5e-5 at step 9).
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-3
 # conv_init's 0.02-scale embedding leaves COSTMODEL_BASE's outputs small;
 # x100 brings them to a few tenths, where 2e-4 is tight enough that a
 # TF32 plain version misses it (the sensitivity line reports by how much)
@@ -1098,6 +1127,324 @@ def phase_serve_lstm(card: str) -> dict:
     return out
 
 
+def tf32_conv1d(x, w, b):
+    """models.conv1d without its precision guard: cuDNN under the
+    process's switches, the plain conv path as it was before the TF32
+    repair (the train phase's sensitivity case)."""
+    import torch.nn.functional as F
+    fs = w.shape[0]
+    xc = F.pad(x.transpose(1, 2), ((fs - 1) // 2, fs // 2))
+    return F.conv1d(xc, w.permute(2, 1, 0)).transpose(1, 2) + b
+
+
+def grad_distance(a, b) -> float:
+    """Relative L2 distance of two gradient trees, all leaves together."""
+    from repro_torch import params as P
+    fa = [x.double().cpu() for x in P.tree_flatten(a)]
+    fb = [x.double().cpu() for x in P.tree_flatten(b)]
+    num = sum(float(((x - y) ** 2).sum()) for x, y in zip(fa, fb))
+    return (num / sum(float((y ** 2).sum()) for y in fb)) ** 0.5
+
+
+def params_equal(a, b, rtol: float, atol: float) -> float:
+    """Largest |a - b| over two param trees; raises past rtol/atol."""
+    import numpy as np
+    from repro_torch import params as P
+    worst = 0.0
+    for x, y in zip(P.tree_flatten(a), P.tree_flatten(b)):
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        worst = max(worst, float(np.abs(x - y).max()))
+        check(bool(np.allclose(y, x, rtol=rtol, atol=atol)),
+              f"resumed params differ from the uninterrupted run's by "
+              f"{float(np.abs(x - y).max())}")
+    return worst
+
+
+def serve_trained(kind: str, result, kernel, plain) -> dict:
+    """The trained params through ``CostModelService(kind,
+    use_kernel=True)`` on the serve phases' 128 graphs, one batch a
+    bucket: rows within TOL of ``plain`` (the plain card forward), and
+    ``kernel`` launched once a batch."""
+    import numpy as np
+    import torch
+    from repro_torch import params as P
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core.service import CostModelService
+    ds, _, graphs = serve_world()
+    svc = CostModelService(kind, COSTMODEL_BASE, result.params, ds.vocab,
+                           result.norm_stats, mode="ops", max_seq=256,
+                           max_batch=128, use_kernel=True)
+    entries = [svc.entry(g) for g in graphs]
+    groups = {}
+    for e in entries:
+        groups.setdefault(len(e[1]), []).append(e)
+    kernel.launches = 0
+    rows = [svc.forward_entries(g) for g in groups.values()]
+    launches = kernel.launches
+    check(launches == len(groups), f"serve trained {kind}: {launches} "
+          f"launches for {len(groups)} batches")
+    dev_p = P.from_numpy(result.params, "cuda")
+    err = 0.0
+    with torch.inference_mode():
+        for got, group in zip(rows, groups.values()):
+            ids = torch.from_numpy(np.stack([i for _, i in group])).cuda()
+            want = plain(dev_p, ids)
+            want = torch.stack([want[t] for t in svc.heads], 1)
+            check(bool(np.isfinite(got).all()), "served rows finite")
+            err = max(err, float(np.abs(got - want.cpu().numpy()).max()))
+    check(err <= TOL, f"serve trained {kind}: rows vs plain err {err}")
+    return {"launches": launches, "batches": len(groups),
+            "rows": len(entries), "max_abs_err_vs_plain": err}
+
+
+def profile_steps(engine, train, start: int) -> dict:
+    """Fit ``engine`` with the profiler on from step ``start`` to the
+    end: the wall time a step (host clock, the card synchronized at both
+    ends), the card's kernel time a step and their ratio (the card's busy
+    share), kernel launches a step, and the five kernels with the most
+    card time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+    t = {}
+
+    def on_step(step, dt):
+        if step == start:
+            torch.cuda.synchronize()
+            prof.start()
+            t["0"] = time.perf_counter()
+    engine.fit(train, on_step=on_step)      # synchronizes at its end
+    wall_s = time.perf_counter() - t["0"]
+    prof.stop()
+    n = engine.ecfg.steps - start
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return {"steps": n, "wall_ms_per_step": wall_s * 1e3 / n,
+            "card_ms_per_step": busy_us / 1e3 / n,
+            "card_busy_share": busy_us / 1e6 / wall_s,
+            "launches_per_step": sum(e.count for e in kernels) / n,
+            "top_kernels_ms_per_step": {
+                e.key[:60]: e.self_device_time_total / 1e3 / n
+                for e in top}}
+
+
+def phase_train(card: str) -> dict:
+    """Train the Conv1D and LSTM cost models on the card, then serve
+    what was trained through K1 and K2 (see the module docstring)."""
+    import signal
+    import tempfile
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch import params as P
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core import models as CM
+    from repro_torch.core import trainer as TR
+    from repro_torch.core.service import CostModelService
+    from repro_torch.ir import dataset as DS
+    from repro_torch.kernels import conv1d_stack as K
+    from repro_torch.kernels import lstm_scan as K2
+    t_phase = time.perf_counter()
+    heads = CM.DEFAULT_HEADS
+    ds, stats, graphs = serve_world()
+    tr, te = ds.split(0.1)
+
+    # 1. F1 end to end, with the TF32 switches at torch's defaults
+    params = seeded_params(COSTMODEL_BASE, heads, 0)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        def service(device):
+            return CostModelService("conv1d", COSTMODEL_BASE, params,
+                                    ds.vocab, stats, mode="ops",
+                                    max_seq=256, max_batch=128,
+                                    device=device)
+        entries = [service("cpu").entry(g) for g in graphs]
+        rows_cpu = service("cpu").predict_entries(entries)
+        rows_card = service(None).predict_entries(entries)
+        serve_err = float(np.abs(rows_card - rows_cpu).max())
+        with mock.patch.object(CM, "conv1d", tf32_conv1d):
+            tf32_serve_err = float(np.abs(
+                service(None).predict_entries(entries) - rows_cpu).max())
+        ids = torch.from_numpy(tr.ids[:64])
+        y, _ = DS.stacked_normalized_targets(
+            {t: v[:64] for t, v in tr.targets.items()}, heads)
+        y = torch.from_numpy(y)
+        loss_fn = TR.make_loss_fn(CM.conv_apply, heads)
+        _, g_cpu = TR.value_and_grad(loss_fn, P.from_numpy(params, "cpu"),
+                                     ids, y)
+
+        def card_grads():
+            return TR.value_and_grad(loss_fn, P.from_numpy(params, "cuda"),
+                                     ids.cuda(), y.cuda())[1]
+        grad_err = grad_distance(card_grads(), g_cpu)
+        with mock.patch.object(CM, "conv1d", tf32_conv1d):
+            tf32_grad_err = grad_distance(card_grads(), g_cpu)
+        # reported, not checked: a batch of random tokens, where a ReLU
+        # input lies within rounding of 0 and its gate opens in one
+        # arithmetic only: the card's float32 misses its own float64 by
+        # as much as TF32 misses the CPU, so no limit tells them apart
+        rng = np.random.default_rng(9)
+        r_ids = torch.from_numpy(ragged_ids(rng, 64, 256, 8192))
+        r_y = torch.from_numpy(rng.standard_normal((64, 3))
+                               .astype(np.float32))
+        _, r_cpu = TR.value_and_grad(loss_fn, P.from_numpy(params, "cpu"),
+                                     r_ids, r_y)
+
+        def random_grads(dtype=torch.float32):
+            p = P.from_numpy(params, "cuda", dtype)
+            return TR.value_and_grad(loss_fn, p, r_ids.cuda(),
+                                     r_y.to("cuda", dtype))[1]
+        random_tokens = {"grad_rel_l2": grad_distance(random_grads(),
+                                                      r_cpu),
+                         "card_f32_vs_f64": grad_distance(
+                             random_grads(), random_grads(torch.float64))}
+        with mock.patch.object(CM, "conv1d", tf32_conv1d):
+            random_tokens["tf32_grad_rel_l2"] = grad_distance(
+                random_grads(), r_cpu)
+        switches_kept = bool(torch.backends.cudnn.allow_tf32)
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            with CM.ieee_convolutions():
+                pass
+        guard_us = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cudnn.allow_tf32 = False     # the f32 yardsticks
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(serve_err <= TOL, f"default card service vs CPU err {serve_err}")
+    check(grad_err <= TRAIN_GRAD_RTOL, f"card gradients {grad_err} off "
+          f"the CPU's (limit {TRAIN_GRAD_RTOL})")
+    check(tf32_grad_err > TRAIN_GRAD_RTOL, f"TF32 gradients only "
+          f"{tf32_grad_err} off: the gradient check cannot fail")
+    check(switches_kept, "the precision guard lost cuDNN's TF32 switch")
+    f1 = {"phase": "train", "case": "f1_tf32_defaults",
+          "serve_max_abs_err": serve_err,
+          "tf32_serve_max_abs_err": tf32_serve_err,
+          "grad_rel_l2": grad_err, "tf32_grad_rel_l2": tf32_grad_err,
+          "grad_limit": TRAIN_GRAD_RTOL, "rows": len(entries),
+          "random_tokens": random_tokens, "guard_host_us": guard_us}
+    emit(f1)
+
+    # 2. conv1d, 200 steps, deterministic; killed at 120 and resumed
+    class Kill(Exception):
+        pass
+
+    def kill_at(n):
+        def on_step(step, dt):
+            if step == n:
+                raise Kill()
+        return on_step
+    kw = dict(steps=200, batch_size=64, bucketed=True, save_every=50,
+              log_every=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            full = TR.TrainEngine("conv1d", COSTMODEL_BASE, heads,
+                                  ckpt_dir=os.path.join(tmp, "full"),
+                                  **kw).fit(tr)
+            full_s = time.perf_counter() - t0
+            d = os.path.join(tmp, "killed")
+            try:
+                TR.TrainEngine("conv1d", COSTMODEL_BASE, heads, ckpt_dir=d,
+                               **kw).fit(tr, on_step=kill_at(120))
+                check(False, "the run to kill was not killed")
+            except Kill:
+                pass
+            resumed = TR.TrainEngine("conv1d", COSTMODEL_BASE, heads,
+                                     ckpt_dir=d, **kw).fit(tr)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(resumed.stats["steps"] == 100.0,
+          f"resumed {resumed.stats['steps']} steps, not 100")
+    resume_err = params_equal(full.params, resumed.params, 1e-6, 1e-7)
+    first, last = full.history[0][1], full.history[-1][1]
+    check(last < 0.5 * first, f"loss {first} -> {last}: not below half")
+    metrics = TR.evaluate("conv1d", COSTMODEL_BASE, full, te)
+    check(set(metrics) == set(heads) and all(
+        np.isfinite(list(m.values())).all() for m in metrics.values()),
+        f"evaluate gave {metrics}")
+    emit({"phase": "train", "case": "conv1d", "steps": 200,
+          "batch_size": 64, "first_loss": first, "last_loss": last,
+          "resumed_steps": resumed.stats["steps"],
+          "resume_max_abs_diff": resume_err, "seconds": full_s,
+          "eval": {t: {k: metrics[t][k] for k in ("rmse_norm",
+                                                  "rmse_rel_pct")}
+                   for t in heads}})
+
+    # 3. the first 10 losses against the same engine on the CPU, stopped
+    # there by the supervisor's preemption path
+    def preempt_at(n):
+        def on_step(step, dt):
+            if step == n:
+                os.kill(os.getpid(), signal.SIGTERM)
+        return on_step
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        cpu = TR.TrainEngine("conv1d", COSTMODEL_BASE, heads, device="cpu",
+                             install_sigterm=True, **kw).fit(
+                                 tr, on_step=preempt_at(10))
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    card_l = np.array([v for _, v in full.history[:10]])
+    cpu_l = np.array([v for _, v in cpu.history])
+    check(len(cpu_l) == 10, f"CPU run stopped after {len(cpu_l)} steps")
+    loss_err = float(np.max(np.abs(card_l - cpu_l) / np.abs(cpu_l)))
+    check(loss_err <= TRAIN_LOSS_RTOL, f"card losses {loss_err} off the "
+          f"CPU's (limit {TRAIN_LOSS_RTOL})")
+    emit({"phase": "train", "case": "card_vs_cpu_losses",
+          "card": card_l.tolist(), "cpu": cpu_l.tolist(),
+          "max_rel_err": loss_err, "limit": TRAIN_LOSS_RTOL})
+
+    # 4. serve the trained conv1d params through K1
+    conv_serve = serve_trained("conv1d", full, K.conv_forward_fused,
+                               CM.conv_apply)
+    emit({"phase": "train", "case": "serve_trained_conv1d", **conv_serve})
+
+    # 5. lstm, 20 steps, served through K2
+    marks = {}
+
+    def mark(n):
+        def on_step(step, dt):
+            if step == n:
+                torch.cuda.synchronize()
+                marks["t"] = time.perf_counter()
+        return on_step
+    t0 = time.perf_counter()
+    lstm = TR.TrainEngine("lstm", COSTMODEL_BASE, heads, steps=20,
+                          batch_size=64, log_every=20).fit(
+                              tr, on_step=mark(5))
+    lstm_ms = (time.perf_counter() - marks["t"]) * 1e3 / 15
+    lstm_s = time.perf_counter() - t0
+    check(np.isfinite(lstm.stats["final_loss"]), "lstm loss finite")
+    lstm_serve = serve_trained("lstm", lstm, K2.lstm_scan_ids,
+                               CM.lstm_apply)
+    emit({"phase": "train", "case": "lstm", "steps": 20, "batch_size": 64,
+          "final_loss": lstm.stats["final_loss"], "seconds": lstm_s,
+          "ms_per_step": lstm_ms, "serve": lstm_serve, "card": card})
+
+    # 6. conv1d's time a step, bucketed, after 50 steps of warm-up
+    t0 = time.perf_counter()
+    TR.TrainEngine("conv1d", COSTMODEL_BASE, heads, steps=150,
+                   batch_size=64, log_every=150).fit(tr, on_step=mark(50))
+    conv_ms = (time.perf_counter() - marks["t"]) * 1e3 / 100
+    timed_s = time.perf_counter() - t0
+    busy = profile_steps(TR.TrainEngine("conv1d", COSTMODEL_BASE, heads,
+                                        steps=40, batch_size=64,
+                                        log_every=40), tr, 20)
+    out = {"phase": "train", "case": "times", "conv1d_ms_per_step": conv_ms,
+           "conv1d_steps_per_s": 1e3 / conv_ms, "lstm_ms_per_step": lstm_ms,
+           "batch_size": 64, "bucketed": True,
+           "conv1d_timed_run_s": timed_s, "conv1d_profiled": busy,
+           "phase_seconds": time.perf_counter() - t_phase, "card": card}
+    emit(out)
+    return {**out, "f1": f1, "conv_serve": conv_serve,
+            "lstm_serve": lstm_serve}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1105,6 +1452,9 @@ def main() -> int:
               "script needs an NVIDIA card", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails here outside a checkout)
+    # the train phase's resume check runs deterministic algorithms,
+    # which need this before cuBLAS's first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cudnn.allow_tf32 = False         # f32 yardsticks
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = phase_device()
@@ -1114,6 +1464,7 @@ def main() -> int:
     lstm = phase_kernels_lstm()
     serve_lstm = phase_serve_lstm(dev["nvidia_smi"])
     tower = phase_tower()
+    phase_train(dev["nvidia_smi"])
     t64, t4, t1 = (kern["timings"][b] for b in (64, 4, 1))
     l64, l1 = lstm["timings"][64], lstm["timings"][1]
     w64, w1 = tower["timings"][64], tower["timings"][1]

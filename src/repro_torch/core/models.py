@@ -21,6 +21,8 @@ families are not ported yet (:func:`get_model` says so).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -70,6 +72,61 @@ def fc_finish(p, x: torch.Tensor):
     return scalar_head(p["fc"][-1], feats)
 
 
+_PRECISION_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def ieee_convolutions():
+    """cuDNN runs float32 convolutions in IEEE float32 inside, whatever
+    the process-wide TF32 switches say, and gets them back on the way
+    out. Torch leaves cuDNN's TF32 on by default, which lands a
+    COSTMODEL_BASE forward ~3e-4 off (the f32 parity limit is 2e-4).
+
+    The switches are process-wide, so a lock keeps two threads from
+    restoring each other's values. Conv's per-op precision is set to
+    "ieee" (a parent set to "tf32" cannot override it), and the legacy
+    ``allow_tf32`` and RNN's precision move with it, as torch refuses to
+    read the legacy switch while the three disagree."""
+    cudnn = torch.backends.cudnn
+    with _PRECISION_LOCK:
+        try:
+            prev_legacy = cudnn.allow_tf32
+        except RuntimeError:    # the caller mixed the two APIs already
+            prev_legacy = None
+        prev = (cudnn.conv.fp32_precision, cudnn.rnn.fp32_precision)
+        cudnn.allow_tf32 = False
+        cudnn.conv.fp32_precision = cudnn.rnn.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            if prev_legacy is not None:
+                cudnn.allow_tf32 = prev_legacy
+            cudnn.conv.fp32_precision, cudnn.rnn.fp32_precision = prev
+
+
+class _IEEEConv1d(torch.autograd.Function):
+    """``F.conv1d`` (no padding, no bias) whose forward AND backward run
+    under :func:`ieee_convolutions`. Autograd runs the backward later, on
+    its own thread, outside any context around the forward call, so the
+    backward sets the switches itself."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with ieee_convolutions():
+            return F.conv1d(x, w)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        with ieee_convolutions():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, [1], [0], [1], False, [0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw
+
+
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """'same'-padded 1D cross-correlation. x: (B, S, Cin); w: (fs, Cin,
     Cout); b: (Cout,) -> (B, S, Cout).
@@ -78,10 +135,16 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     left and ``fs//2`` on the right, so ``w[k]`` multiplies
     ``x[t - (fs-1)//2 + k]`` (an even ``fs`` looks right only).
     ``F.conv1d`` wants ``(Cout, Cin, fs)`` weights and channels-first
-    activations, hence the permutes."""
+    activations, hence the permutes. A float32 convolution on the card
+    runs in IEEE float32, forward and backward (:class:`_IEEEConv1d`);
+    bf16 params keep cuDNN's bf16 path."""
     fs = w.shape[0]
     xc = F.pad(x.transpose(1, 2), ((fs - 1) // 2, fs // 2))
-    out = F.conv1d(xc, w.permute(2, 1, 0))
+    wc = w.permute(2, 1, 0)
+    if xc.is_cuda and xc.dtype == torch.float32:
+        out = _IEEEConv1d.apply(xc, wc)
+    else:
+        out = F.conv1d(xc, wc)
     return out.transpose(1, 2) + b
 
 

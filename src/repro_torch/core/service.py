@@ -123,7 +123,11 @@ class CostModelService:
     # each kernel computes each row in its own thread block, so per-row
     # results do not depend on how requests were packed into batches and
     # coalesced server batches reproduce direct per-request predictions
-    # bit-for-bit on the card.
+    # bit-for-bit on the card. The plain path (use_kernel=False) does
+    # not: cuDNN and cuBLAS pick their algorithms by shape, so on the
+    # card a row's last bits depend on the batch it was forwarded in
+    # (within the 2e-4 parity limit). Its float32 convolutions run in
+    # IEEE float32 whatever torch's TF32 switches say (models.conv1d).
     batch_ladder: Optional[Tuple[int, ...]] = None
     # torch device for params and forward passes; None means "cuda"
     device: Optional[str] = None

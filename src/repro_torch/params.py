@@ -38,6 +38,59 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def _sorted_items(tree):
+    """(path part, child) pairs in the reference's flatten order: dict
+    keys sorted at every level, lists and tuples in order."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    return [(str(i), v) for i, v in enumerate(tree)]
+
+
+def tree_flatten_with_paths(tree, prefix: str = "") -> list:
+    """``[(path, leaf), ...]`` in the reference's flatten order; a path
+    is the keys and indices joined by ``/`` (``"0/convs/0/b"``), as the
+    reference's checkpoint names them. ``None`` is an empty subtree and
+    gives no leaf."""
+    if tree is None:
+        return []
+    if not isinstance(tree, (dict, list, tuple)):
+        return [(prefix, tree)]
+    out = []
+    for part, child in _sorted_items(tree):
+        out += tree_flatten_with_paths(
+            child, f"{prefix}/{part}" if prefix else part)
+    return out
+
+
+def tree_flatten(tree) -> list:
+    """The leaves in the reference's flatten order (not insertion
+    order, as :func:`tree_leaves` walks): what the checkpoint files and
+    the optimizer's leaf pairing use."""
+    return [leaf for _, leaf in tree_flatten_with_paths(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """Rebuild ``like``'s structure from ``leaves`` given in
+    :func:`tree_flatten` order. Dicts keep ``like``'s key order, so head
+    names come back in the order they went in."""
+    leaves = list(leaves)
+    n = len(tree_flatten(like))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a tree of {n}")
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+    return build(like)
+
+
 def from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
     """numpy (or tensor) leaves -> torch tensors on ``device``.
 

@@ -7,8 +7,16 @@ file imports neither JAX nor the reference package, so it runs on a
 machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_chip.py
+
+The training checks need deterministic algorithms, and with them cuBLAS
+needs ``CUBLAS_WORKSPACE_CONFIG`` before its first call; this module
+sets it when it is imported.
 """
+import os
 import threading
+from unittest import mock
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import pytest
@@ -19,9 +27,11 @@ from repro_torch import params as P
 from repro_torch.configs import costmodel as CFGS
 from repro_torch.core import models as CM
 from repro_torch.core import tokenizer as TOK
+from repro_torch.core import trainer as TR
 from repro_torch.core.models import DEFAULT_HEADS
 from repro_torch.core.server import CostModelServer
 from repro_torch.core.service import CostModelService
+from repro_torch.ir import dataset as DS
 from repro_torch.ir import samplers
 from repro_torch.kernels import conv1d_stack as K
 from repro_torch.kernels import lstm_scan as K2
@@ -531,3 +541,131 @@ def test_server_bit_identical_to_direct_on_card(cuda, corpus, kind):
     for i in range(len(graphs)):
         for t in DEFAULT_HEADS:
             assert results[i][t][0] == want[t][i], (i, t)
+
+
+# ------------------------------------------------ TF32 and training (F1)
+# One loss's gradients, card against CPU, as the relative L2 distance of
+# all leaves together, on the dataset's rows: both float32 sum in other
+# orders (measured 5.1e-7), TF32 convolutions land 6.0e-4 off. A ReLU
+# input within rounding of 0 opens its gate on one side only, whatever
+# the precision (random tokens at COSTMODEL_BASE did that: 1.5e-3), so
+# the check runs on the dataset's rows, as training does.
+GRAD_RTOL = 1e-4
+
+
+@pytest.fixture
+def torch_default_tf32(cuda):
+    """The TF32 switches as torch leaves them (cuDNN's on, matmul's off)
+    for one test, then back to the f32 yardsticks'."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def tf32_conv1d(x, w, b):
+    """models.conv1d without its precision guard: cuDNN under the
+    process's switches (the plain path as it was before the repair)."""
+    fs = w.shape[0]
+    xc = torch.nn.functional.pad(x.transpose(1, 2),
+                                 ((fs - 1) // 2, fs // 2))
+    out = torch.nn.functional.conv1d(xc, w.permute(2, 1, 0))
+    return out.transpose(1, 2) + b
+
+
+def grad_distance(a, b) -> float:
+    fa = [x.double().cpu() for x in P.tree_flatten(a)]
+    fb = [x.double().cpu() for x in P.tree_flatten(b)]
+    num = sum(float(((x - y) ** 2).sum()) for x, y in zip(fa, fb))
+    den = sum(float((y ** 2).sum()) for y in fb)
+    return (num / den) ** 0.5
+
+
+def test_default_card_service_matches_cpu_with_tf32_at_defaults(
+        torch_default_tf32, corpus):
+    """A default-constructed service (plain path, no kernel) on the card
+    with torch's own TF32 switches: within 2e-4 of the CPU service. Its
+    rows do not keep their bits across batch packing (cuDNN and cuBLAS
+    pick their algorithms by shape; the service's docstring says so):
+    a row forwarded alone is held to the same row in a full batch
+    within 2e-4 only."""
+    graphs, vocab = corpus
+    want = _service(vocab, "cpu").predict_all(graphs)
+    card = _service(vocab, None)
+    assert not card.use_kernel
+    got = card.predict_all(graphs)
+    for t in DEFAULT_HEADS:
+        np.testing.assert_allclose(got[t], want[t], rtol=TOL, atol=TOL)
+    assert torch.backends.cudnn.allow_tf32     # the guard gave them back
+    entries = [card.entry(g) for g in graphs]
+    by_len = {}
+    for e in entries:
+        by_len.setdefault(len(e[1]), []).append(e)
+    for group in by_len.values():
+        batch = card.forward_entries(group)
+        alone = np.stack([card.forward_entries([e])[0] for e in group])
+        np.testing.assert_allclose(alone, batch, rtol=TOL, atol=TOL)
+
+
+def test_train_gradients_on_card_match_cpu_with_tf32_at_defaults(
+        torch_default_tf32):
+    """One multi-head loss's gradients at COSTMODEL_BASE with torch's
+    TF32 switches: the card within GRAD_RTOL of the CPU; the plain conv
+    without its guard (TF32 forward and backward) misses it."""
+    cfg = CFGS.COSTMODEL_BASE
+    params = seeded_params(cfg, DEFAULT_HEADS, 0)
+    tr, _ = DS.build_dataset(300, mode="ops", max_seq=256, vocab_size=8192,
+                             seed=0).split(0.1)
+    rows = slice(64, 128)          # chip_smoke.py checks rows 0-63
+    ids = torch.from_numpy(tr.ids[rows])
+    y, _ = DS.stacked_normalized_targets(
+        {t: v[rows] for t, v in tr.targets.items()}, DEFAULT_HEADS)
+    y = torch.from_numpy(y)
+    loss_fn = TR.make_loss_fn(CM.conv_apply, DEFAULT_HEADS)
+    _, want = TR.value_and_grad(loss_fn, P.from_numpy(params, "cpu"), ids, y)
+
+    def on_card():
+        return TR.value_and_grad(loss_fn, P.from_numpy(params, "cuda"),
+                                 ids.cuda(), y.cuda())[1]
+    got = grad_distance(on_card(), want)
+    with mock.patch.object(CM, "conv1d", tf32_conv1d):
+        tf32 = grad_distance(on_card(), want)
+    assert got <= GRAD_RTOL, got
+    assert tf32 > GRAD_RTOL, tf32
+
+
+def test_engine_resume_on_card_is_exact(cuda, tmp_path):
+    """Kill and resume on the card under deterministic algorithms lands
+    on the uninterrupted run's params (the reference test's limits)."""
+    tr, _ = DS.build_dataset(300, mode="ops", max_seq=96, vocab_size=512,
+                             augment_factor=2, seed=1).split(0.1)
+    kw = dict(steps=40, batch_size=32, seed=3, device="cuda")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        full = TR.TrainEngine("conv1d", CFGS.COSTMODEL_SMALL, DEFAULT_HEADS,
+                              **kw).fit(tr)
+
+        class Kill(Exception):
+            pass
+
+        def killer(step, dt):
+            if step == 17:
+                raise Kill()
+        d = str(tmp_path / "ck")
+        with pytest.raises(Kill):
+            TR.TrainEngine("conv1d", CFGS.COSTMODEL_SMALL, DEFAULT_HEADS,
+                           ckpt_dir=d, save_every=10, **kw).fit(
+                               tr, on_step=killer)
+        resumed = TR.TrainEngine("conv1d", CFGS.COSTMODEL_SMALL,
+                                 DEFAULT_HEADS, ckpt_dir=d, save_every=10,
+                                 **kw).fit(tr)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert resumed.stats["steps"] == 30.0
+    for a, b in zip(P.tree_flatten(full.params),
+                    P.tree_flatten(resumed.params)):
+        assert b.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-7)

@@ -84,6 +84,28 @@ Phases, each printing JSON lines:
    through K1 (conv1d) and, after 20 LSTM steps, K2: rows within 2e-4
    of the plain card forward, one launch a batch. Reports ms a step for
    both (conv1d after 50 steps of warm-up).
+9. ``compiler`` — the compiler's path at COSTMODEL_BASE: trains conv1d
+   on the rewrite-augmented corpus (``build_dataset(600,
+   rewrite_factor=1, seed=9)``, split 0.1; 250 steps of 128, lr 2e-3:
+   the reference's opt-test settings), then serves the trained params
+   through K1 (``CostModelService(use_kernel=True)``, directly and
+   behind a ``CostModelServer``) beside a plain CPU service. Front door:
+   the printer's MLIR of 64 graphs outside the corpus and the affine
+   example through ``predict_text`` of the service (every text a
+   ``TextPrediction``, K1 launched once for each forward batch the
+   service ran; LRU hits launch nothing) and of the server from 8
+   threads (bit for bit the service's); card rows within 2e-4 of the
+   CPU's and predictions within 1e-3 relative; 200 fuzzed texts with
+   no error at the ``predict`` stage and not all degraded; a stopped
+   server answers ``IngestError("predict")``. Advisors (fusion,
+   unroll, recompile) through a server, within 1e-3 of the CPU
+   service's. Closed loop: ``evaluate_search`` over 20 graphs of all
+   samplers (beam 3, 4 steps, 128 candidates) meets the reference's
+   oracle bar, and K1's launches over the whole phase equal the
+   forward batches. Reports ms a training step, host us a text for
+   ingest and encode, ``predict_text`` p50/p99, the search's seconds,
+   calls and launches a graph, how many best graphs the CPU service
+   also picks, and the card's busy share over one profiled search.
 
 Then one ``{"kernels": [...]}`` line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -1445,6 +1467,336 @@ def phase_train(card: str) -> dict:
             "lstm_serve": lstm_serve}
 
 
+# compiler phase: the reference fixture's corpus and training settings
+# (tests/test_opt.py's trained model) at COSTMODEL_BASE's widths
+COMPILER_GRAPHS, COMPILER_STEPS = 600, 250
+RTOL_DEN = 1e-3         # denormalized predictions, card against CPU
+
+
+def count_batches(svc) -> list:
+    """Count the forward batches ``svc`` dispatches (a K1 service
+    launches K1 once for each); returns the one-item counter."""
+    n = [0]
+    dispatch = svc.forward_dispatch
+
+    def counted(ids):
+        n[0] += 1
+        return dispatch(ids)
+    svc.forward_dispatch = counted
+    return n
+
+
+def chain_graph():
+    """The three-op elementwise chain of the reference's opt tests."""
+    from repro_torch.ir.graph import Graph, Tensor
+    t = Tensor((8, 128))
+    g = Graph(name="chain")
+    x = g.add_arg(t)
+    for op in ("relu", "tanh", "sigmoid"):
+        x = g.add_op(op, [x], t)
+    g.outputs = [x]
+    return g
+
+
+def rel_err(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-12)))
+
+
+def phase_compiler(card: str) -> dict:
+    """The compiler's path (see the module docstring): MLIR text in
+    through the front door, rewrite advice out of the optimizer, every
+    forward through K1 on the card."""
+    from unittest import mock
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import params as P
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core import augment as AUG
+    from repro_torch.core import models as CM
+    from repro_torch.core import service as SVC
+    from repro_torch.core import trainer as TR
+    from repro_torch.core.server import CostModelServer
+    from repro_torch.ir import dataset as DS
+    from repro_torch.ir import frontdoor as FD
+    from repro_torch.ir import printer, samplers
+    from repro_torch.kernels import conv1d_stack as K
+    from repro_torch.opt import evaluate as OE
+    from repro_torch.opt import search as SE
+    t_phase = time.perf_counter()
+    heads = CM.DEFAULT_HEADS
+    fams = sorted(samplers.SAMPLERS)
+
+    # 1. train on the rewrite-augmented corpus
+    t0 = time.perf_counter()
+    ds = DS.build_dataset(COMPILER_GRAPHS, mode="ops", max_seq=256,
+                          vocab_size=8192, rewrite_factor=1, seed=9)
+    corpus_s = time.perf_counter() - t0
+    tr, _ = ds.split(0.1)
+    marks = {}
+
+    def mark(step, dt):
+        if step == 50:
+            torch.cuda.synchronize()
+            marks["t"] = time.perf_counter()
+    t0 = time.perf_counter()
+    result = TR.TrainEngine("conv1d", COSTMODEL_BASE, heads,
+                            steps=COMPILER_STEPS, batch_size=128, lr=2e-3,
+                            seed=9, log_every=10).fit(tr, on_step=mark)
+    t1 = time.perf_counter()
+    step_ms = (t1 - marks["t"]) * 1e3 / (COMPILER_STEPS - 50)
+    first, last = result.history[0][1], result.history[-1][1]
+    check(np.isfinite(last) and last < first,
+          f"compiler: loss {first} -> {last}")
+    emit({"phase": "compiler", "case": "train", "rows": len(ds),
+          "train_rows": len(tr), "vocab": len(ds.vocab.token_to_id),
+          "corpus_s": corpus_s, "steps": COMPILER_STEPS,
+          "batch_size": 128, "first_loss": first, "last_loss": last,
+          "train_s": t1 - t0, "ms_per_step": step_ms, "card": card})
+
+    # 2. serve: K1 services on the card (one direct, one behind the
+    # server), a plain CPU service, all from the same numpy params
+    params = P.to_numpy(result.params)
+
+    def service(**kw):
+        return SVC.CostModelService("conv1d", COSTMODEL_BASE, params,
+                                    ds.vocab, result.norm_stats, mode="ops",
+                                    max_seq=256, max_batch=64, **kw)
+    direct = service(use_kernel=True)
+    served = service(use_kernel=True)
+    cpu = service(device="cpu")
+    direct.warmup()
+    server = CostModelServer(served, max_batch=64, flush_us=500).start(
+        warmup=True)
+    batches = [count_batches(direct), count_batches(served)]
+    K.conv_forward_fused.launches = 0        # the path from here on
+
+    # 3. the front door: printer texts of 64 graphs outside the corpus
+    # (another seed) and the affine example
+    rng = np.random.default_rng(77)
+    held = [samplers.sample_graph(rng, fams[i % len(fams)])
+            for i in range(64)]
+    texts = [printer.to_mlir(g) for g in held] + [FD.AFFINE_EXAMPLE]
+    t0 = time.perf_counter()
+    ents = [cpu.ingest_text(t) for t in texts]    # no forward
+    ingest_us = (time.perf_counter() - t0) * 1e6 / len(texts)
+    bad = [e for e in ents if not isinstance(e, FD.TextEntry)]
+    check(not bad, f"compiler: ingest errors {bad[:3]}")
+    svc_out = []
+    for text in texts:
+        l0, b0 = K.conv_forward_fused.launches, batches[0][0]
+        out = direct.predict_text(text)
+        check(isinstance(out, FD.TextPrediction),
+              f"compiler: service predict_text gave {out!r}")
+        check(K.conv_forward_fused.launches - l0 == batches[0][0] - b0,
+              f"compiler: {K.conv_forward_fused.launches - l0} K1 "
+              f"launches for {batches[0][0] - b0} forward batches")
+        svc_out.append(out)
+    srv_out, lat, errors = [None] * len(texts), [], []
+    lock = threading.Lock()
+
+    def client(k: int) -> None:
+        try:
+            for i in range(k, len(texts), 8):
+                ts = time.perf_counter()
+                out = server.predict_text(texts[i])
+                dt = time.perf_counter() - ts
+                with lock:
+                    srv_out[i] = out
+                    lat.append(dt)
+        except Exception as e:                     # surfaced below
+            errors.append(repr(e))
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads), "client threads ended")
+    check(not errors, f"compiler: client errors {errors[:3]}")
+    bad = [o for o in srv_out if not isinstance(o, FD.TextPrediction)]
+    check(not bad, f"compiler: server predict_text gave {bad[:3]}")
+    identical = all(a.predictions == b.predictions
+                    for a, b in zip(srv_out, svc_out))
+    check(identical, "compiler: server predict_text != service bit for bit")
+    entries = [(e.key, e.ids) for e in ents]
+    row_err = float(np.abs(direct.predict_entries(entries)
+                           - cpu.predict_entries(entries)).max())
+    check(row_err <= TOL, f"compiler: card rows vs CPU err {row_err}")
+    cpu_out = [cpu.predict_text(t) for t in texts]
+    den_err = max(rel_err([a.predictions[t] for t in heads],
+                          [b.predictions[t] for t in heads])
+                  for a, b in zip(svc_out, cpu_out))
+    check(den_err <= RTOL_DEN,
+          f"compiler: card predictions vs CPU rel err {den_err}")
+    fuzz = FD.fuzz_corpus(texts[:8] + [FD.AFFINE_EXAMPLE], 200,
+                          np.random.default_rng(5))
+    stages, n_pred = {}, 0
+    for text in fuzz:
+        out = server.predict_text(text)
+        if isinstance(out, FD.IngestError):
+            stages[out.stage] = stages.get(out.stage, 0) + 1
+        else:
+            check(all(np.isfinite(v) for v in out.predictions.values()),
+                  "compiler: fuzz predictions finite")
+            n_pred += 1
+    check("predict" not in stages,
+          f"compiler: fuzz errors at the predict stage: {stages}")
+    check(n_pred > 0, "compiler: every fuzzed text degraded")
+    snap = server.metrics_snapshot()
+    server.stop()
+    stopped = server.predict_text(texts[0])
+    check(isinstance(stopped, FD.IngestError) and stopped.stage == "predict",
+          f"compiler: a stopped server gave {stopped!r}")
+    lat_ms = np.asarray(lat) * 1e3
+    emit({"phase": "compiler", "case": "front_door", "texts": len(texts),
+          "ingest_encode_host_us_per_text": ingest_us,
+          "server_predict_text_p50_ms": float(np.percentile(lat_ms, 50)),
+          "server_predict_text_p99_ms": float(np.percentile(lat_ms, 99)),
+          "server_p50_us": snap["latency_p50_us"],
+          "server_p99_us": snap["latency_p99_us"],
+          "server_batches": snap["batches"],
+          "identical_server_service": identical,
+          "rows_max_abs_err_vs_cpu": row_err,
+          "predictions_max_rel_err_vs_cpu": den_err,
+          "fuzz": {"texts": len(fuzz), "predicted": n_pred,
+                   "errors_by_stage": stages},
+          "stopped_server": repr(stopped),
+          "launches": K.conv_forward_fused.launches,
+          "batches": batches[0][0] + batches[1][0], "card": card})
+
+    # 4. the advisors through a server, against the CPU service's
+    server = CostModelServer(served, max_batch=64, flush_us=500).start(
+        warmup=False)                             # served is warm
+    bert = samplers.sample_graph(np.random.default_rng(11), "bert")
+    new = AUG.augment(bert, np.random.default_rng(12))
+
+    def advise(svc):
+        return (SVC.FusionAdvisor(svc).advise(chain_graph()),
+                SVC.UnrollAdvisor(svc, register_budget=1e9).advise(
+                    bert, factors=(1, 2, 4, 8)),
+                SVC.RecompileAdvisor(svc).advise(bert, new))
+    (fuse, c0, c1), unroll, recompile = advise(server)
+    (cpu_fuse, cpu_c0, cpu_c1), cpu_unroll, cpu_recompile = advise(cpu)
+    check(isinstance(fuse, bool) and c0 > 0 and c1 > 0,
+          f"compiler: FusionAdvisor gave {(fuse, c0, c1)}")
+    check(unroll["best_factor"] in (1, 2, 4, 8)
+          and set(unroll["per_iter_latency"]) == {1, 2, 4, 8},
+          f"compiler: UnrollAdvisor gave {unroll}")
+    check(isinstance(recompile["recompile"], bool)
+          and np.isfinite(recompile["shift"]),
+          f"compiler: RecompileAdvisor gave {recompile}")
+    f = (1, 2, 4, 8)
+    adv_err = max(
+        rel_err([c0, c1], [cpu_c0, cpu_c1]),
+        rel_err([unroll["per_iter_latency"][k] for k in f]
+                + [unroll["register_pressure"][k] for k in f],
+                [cpu_unroll["per_iter_latency"][k] for k in f]
+                + [cpu_unroll["register_pressure"][k] for k in f]),
+        rel_err([recompile["predicted_old"], recompile["predicted_new"]],
+                [cpu_recompile["predicted_old"],
+                 cpu_recompile["predicted_new"]]))
+    check(adv_err <= RTOL_DEN, f"compiler: advisors vs CPU rel err "
+          f"{adv_err}")
+    emit({"phase": "compiler", "case": "advisors",
+          "fusion": {"fuse": fuse, "latency_before": c0,
+                     "latency_after": c1, "same_as_cpu": fuse == cpu_fuse},
+          "unroll": {**unroll, "same_as_cpu":
+                     unroll["best_factor"] == cpu_unroll["best_factor"]},
+          "recompile": {**recompile, "same_as_cpu":
+                        recompile["recompile"]
+                        == cpu_recompile["recompile"]},
+          "max_rel_err_vs_cpu": adv_err, "card": card})
+
+    # 5. the closed loop: beam search through the server, judged by the
+    # analyzer oracle; the CPU service searches the same graphs
+    rng = np.random.default_rng(10)
+    graphs = [samplers.sample_graph(rng, fams[i % len(fams)])
+              for i in range(20)]
+    best_keys = {"card": [], "cpu": []}
+    replay = OE.replay
+
+    def recording(tag):
+        def rec(res, rules=None):
+            g = replay(res, rules)
+            best_keys[tag].append(g.struct_key())
+            return g
+        return rec
+    kw = dict(beam_width=3, max_steps=4, eval_budget=128)
+    l0 = K.conv_forward_fused.launches
+    with mock.patch.object(OE, "replay", recording("card")):
+        t0 = time.perf_counter()
+        report = OE.evaluate_search(server, graphs, **kw)
+        search_s = time.perf_counter() - t0
+    search_launches = K.conv_forward_fused.launches - l0
+    with mock.patch.object(OE, "replay", recording("cpu")):
+        cpu_report = OE.evaluate_search(cpu, graphs, **kw)
+    s = report["summary"]
+    check(s["n_graphs"] == 20, "compiler: 20 searches")
+    check(s["mean_oracle_best_us"] <= s["mean_oracle_baseline_us"] + 1e-9,
+          f"compiler: search {s['mean_oracle_best_us']} us worse than the "
+          f"fusion baseline {s['mean_oracle_baseline_us']} us")
+    check(s["frac_strictly_better_than_baseline"] >= 0.25,
+          f"compiler: strictly better on "
+          f"{s['frac_strictly_better_than_baseline']} of the graphs")
+    check(all(r["predict_calls"] == 1 + r["expansions"]
+              for r in report["per_graph"]),
+          "compiler: one predict_all a frontier expansion")
+    check(s["spearman_pred_oracle_pooled"] > 0.3,
+          f"compiler: pooled Spearman {s['spearman_pred_oracle_pooled']}")
+    same_best = sum(a == b for a, b in zip(best_keys["card"],
+                                           best_keys["cpu"]))
+    keys = ("mean_oracle_root_us", "mean_oracle_best_us",
+            "mean_oracle_baseline_us", "frac_strictly_better_than_baseline",
+            "spearman_pred_oracle_pooled", "spearman_pred_oracle",
+            "candidates_costed", "predict_calls")
+    emit({"phase": "compiler", "case": "closed_loop",
+          **{k: s[k] for k in keys},
+          "cpu": {k: cpu_report["summary"][k] for k in keys},
+          "same_best_as_cpu": same_best,
+          "evaluate_wall_s_per_graph": search_s / 20,
+          "predict_all_calls_per_graph": s["predict_calls"] / 20,
+          "k1_launches_per_graph": search_launches / 20, "card": card})
+
+    # 6. the card's busy share over one search of a graph not seen yet
+    g = samplers.sample_graph(np.random.default_rng(99), "resnet")
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+    l0, b1 = K.conv_forward_fused.launches, batches[1][0]
+    torch.cuda.synchronize()
+    prof.start()
+    t0 = time.perf_counter()
+    res = SE.beam_search(server, g, **kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    prof.stop()
+    server.stop()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    emit({"phase": "compiler", "case": "profiled_search",
+          "graph_ops": len(g.ops), "expansions": res.expansions,
+          "evaluated": res.evaluated, "wall_ms": wall_s * 1e3,
+          "card_ms": busy_us / 1e3, "card_busy_share": busy_us / 1e6
+          / wall_s, "k1_launches": K.conv_forward_fused.launches - l0,
+          "forward_batches": batches[1][0] - b1,
+          "card_kernel_launches": sum(e.count for e in kernels),
+          "card": card})
+
+    launches, n_batches = K.conv_forward_fused.launches, \
+        batches[0][0] + batches[1][0]
+    check(launches > 0 and launches == n_batches,
+          f"compiler: {launches} K1 launches for {n_batches} forward "
+          f"batches")
+    out = {"phase": "compiler", "case": "path", "launches": launches,
+           "batches": n_batches,
+           "phase_seconds": time.perf_counter() - t_phase, "card": card}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1465,13 +1817,17 @@ def main() -> int:
     serve_lstm = phase_serve_lstm(dev["nvidia_smi"])
     tower = phase_tower()
     phase_train(dev["nvidia_smi"])
+    compiler = phase_compiler(dev["nvidia_smi"])
     t64, t4, t1 = (kern["timings"][b] for b in (64, 4, 1))
     l64, l1 = lstm["timings"][64], lstm["timings"][1]
     w64, w1 = tower["timings"][64], tower["timings"][1]
     emit({"kernels": [{
         "name": "conv_forward_fused", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-        "launches": serve["launches"], "max_abs_err": kern["max_abs_err"],
+        "launches": serve["launches"] + compiler["launches"],
+        "launches_by_path": {"serve": serve["launches"],
+                             "compiler": compiler["launches"]},
+        "max_abs_err": kern["max_abs_err"],
         "ms": t64["ms"], "plain_ms": t64["plain_ms"],
         "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],
         "library_ms": None,

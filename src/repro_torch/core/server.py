@@ -634,3 +634,26 @@ class CostModelServer:
 
     def predict(self, g: Graph, target: Optional[str] = None) -> float:
         return float(self.predict_graphs([g], target)[0])
+
+    def predict_text(self, text, timeout: Optional[float] = 60.0):
+        """Async-gateway twin of ``service.predict_text``: the text is
+        featurized in the caller's thread (ingest + encode + OOV
+        accounting on the wrapped service), then rides ``submit_entry``
+        — key-first LRU probe, in-flight dedup, micro-batching, and
+        backpressure all apply. Returns a TextPrediction or a
+        structured IngestError; ingestion never raises (server-side
+        failures like overload/timeout surface as ``predict``-stage
+        errors)."""
+        from repro_torch.ir import frontdoor as FD
+        ent = self.service.ingest_text(text)
+        if isinstance(ent, FD.IngestError):
+            return ent
+        try:
+            row = self.submit_entry(ent.key, ent.ids).result(
+                timeout=timeout)
+        except Exception as e:
+            return FD.IngestError("predict", type(e).__name__,
+                                  str(e)[:200])
+        preds = self.service.denormalize_rows(row[None])
+        return FD.prediction_from(
+            ent, {t: float(preds[t][0]) for t in self.heads})

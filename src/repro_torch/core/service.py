@@ -34,8 +34,21 @@ while compiling in order to make the best decisions." This module provides:
   without blocking, launches on the current stream and returns a handle
   with a CUDA event; collecting waits on that event.
 
-The compiler advisors and the MLIR-text front door (``predict_text``)
-come with the ports of the optimizer and the front door.
+* the MLIR-text front door: ``ingest_text`` featurizes lowered MLIR
+  text through :mod:`repro_torch.ir.frontdoor` and ``predict_text``
+  serves it through the same LRU, buckets and batch ladder as a Graph
+  query, answering a structured ``IngestError`` instead of raising.
+* three compiler advisors, each a thin wrapper over a single-rule
+  :mod:`repro_torch.opt` search (the full multi-rule beam search lives
+  in :mod:`repro_torch.opt.search`):
+  - FusionAdvisor:    greedy search over the elementwise-fusion rule
+  - UnrollAdvisor:    one Unroll-rule expansion; pick the factor with the
+                      best per-iteration predicted latency while register
+                      pressure stays under budget (both targets from ONE
+                      batched forward pass)
+  - RecompileAdvisor: given new tensor shapes, reuse compiled code if the
+                      predicted characteristic shift is below a threshold
+                      (the paper's dynamic-runtime recompile decision).
 
 The LRU is keyed by ``Graph.struct_key()`` — the same canonical
 structural hash the opt search dedups its frontier with — so two
@@ -227,7 +240,7 @@ class CostModelService:
         self.truncations = 0
         # real-MLIR front door counters (text count, structured
         # failures, the running OOV tally phase_stats() exposes as
-        # ``oov_rate``); they stay 0 until the front door is ported
+        # ``oov_rate``)
         self.ingested_texts = 0
         self.ingest_errors = 0
         self.ingest_tokens = 0
@@ -656,6 +669,76 @@ class CostModelService:
                     rows[j] = p
         return np.stack(rows)
 
+    # ------------------------------------------------- real-MLIR front door
+    def ingest_text(self, text):
+        """Featurize raw MLIR text -> :class:`~repro_torch.ir.frontdoor.
+        TextEntry` or a structured :class:`~repro_torch.ir.frontdoor.
+        IngestError`; never raises on input.
+
+        Structurally-parsed texts tokenize through the same
+        ``graph_tokens`` path as Graph submits and are keyed by
+        ``struct_key`` — an ingested program shares LRU entries with
+        the identical program built through the Graph API. Unparsable
+        (but lexable) texts degrade to the raw token stream under a
+        content-hash key. Either way the ids are bucket-padded, so the
+        entry drops straight into ``predict_entries`` /
+        ``submit_entry``."""
+        from repro_torch.ir import frontdoor as FD
+        res = FD.ingest(text)
+        if isinstance(res, FD.IngestError):
+            with self._cache_lock:
+                self.ingest_errors += 1
+            return res
+        t0 = time.perf_counter()
+        toks, key = res.tokens, res.key
+        if res.graph is not None:
+            try:
+                toks = TOK.graph_tokens(res.graph, self.mode)
+            except Exception:            # tolerate parser edge cases
+                toks, key = res.tokens, FD.text_key(res.tokens)
+        bucket = self._bucket_len(len(toks))
+        ids = self.vocab.encode(toks, bucket)
+        oov = self.vocab.oov_rate(toks)
+        unk = self.vocab.unk_fraction(ids)
+        with self._cache_lock:
+            self.full_encodes += 1
+            if len(toks) > bucket:
+                self.truncations += 1
+            self.ingested_texts += 1
+            self.ingest_tokens += len(toks)
+            self.ingest_oov_tokens += int(round(oov * len(toks)))
+        self._phase_add("encode_s", time.perf_counter() - t0)
+        if self.drift is not None:     # vocab-drift EWMAs + alarms
+            self.drift.note_text(oov, unk)
+        return FD.TextEntry(key=key, ids=ids, n_tokens=len(toks),
+                            oov_rate=oov, unk_rate=unk,
+                            dialects=res.dialects, n_ops=res.n_ops)
+
+    def predict_text(self, text):
+        """End-to-end text prediction: lowered MLIR in, denormalized
+        predictions for every head out — or a structured IngestError
+        (never an exception) when the input defeats ingestion.
+
+        Runs the ids-first ``predict_entries`` path, so the prediction
+        LRU, bucketing, and batch ladder behave exactly as for Graph
+        queries. A failure of the forward pass itself (a kernel that
+        does not build or launch included) comes back as an
+        ``IngestError`` at stage ``predict``."""
+        from repro_torch.ir import frontdoor as FD
+        ent = self.ingest_text(text)
+        if isinstance(ent, FD.IngestError):
+            return ent
+        try:
+            raw = self.predict_entries([(ent.key, ent.ids)])
+            preds = self.denormalize_rows(raw)
+        except Exception as e:
+            with self._cache_lock:
+                self.ingest_errors += 1
+            return FD.IngestError("predict", type(e).__name__,
+                                  str(e)[:200])
+        return FD.prediction_from(
+            ent, {t: float(preds[t][0]) for t in self.heads})
+
     def warmup(self, batch_sizes: Optional[Sequence[int]] = None,
                buckets: Optional[Sequence[int]] = None) -> int:
         """Build the library of this kind's fused forward (on the card),
@@ -764,3 +847,92 @@ class CostModelService:
 
     def predict(self, g: Graph, target: Optional[str] = None) -> float:
         return float(self.predict_graphs([g], target)[0])
+
+
+# --------------------------------------------------------------- advisors
+# The transforms themselves live in the repro_torch.opt rewrite registry;
+# re-exported here for existing callers.
+from repro_torch.opt.rewrites import (  # noqa: E402  (re-export)
+    FuseElementwise, Unroll, fuse_elementwise, unroll_graph)
+from repro_torch.opt import search as OPT  # noqa: E402
+
+
+@dataclass
+class FusionAdvisor:
+    """One-rule wrapper over the opt search: greedily fuse elementwise
+    chains while the model predicts an improvement."""
+    service: CostModelService
+    target: str = "latency_us"
+
+    def advise(self, g: Graph) -> Tuple[bool, float, float]:
+        obj = OPT.Objective(latency_target=self.target,
+                            pressure_target=None)
+        res = OPT.greedy_search(self.service, g,
+                                rules=[FuseElementwise()], objective=obj)
+        lat_t = self.service.resolve_target(self.target)
+        return (res.improved, float(res.root_preds[lat_t]),
+                float(res.best_preds[lat_t]))
+
+
+@dataclass
+class UnrollAdvisor:
+    """Single-rule (Unroll) one-expansion search over ONE multi-target
+    service: latency and register pressure for every factor come out of
+    the same batched forward pass."""
+    service: CostModelService
+    register_budget: float = 64.0
+    latency_target: str = "latency_us"
+    pressure_target: str = "register_pressure"
+
+    def advise(self, g: Graph, factors=(1, 2, 4, 8)) -> Dict:
+        lat_t = self.service.resolve_target(self.latency_target)
+        reg_t = self.service.resolve_target(self.pressure_target)
+        if lat_t == reg_t:
+            # a single-head service would silently judge register-budget
+            # feasibility on latency numbers — refuse instead
+            raise ValueError(
+                f"UnrollAdvisor needs a service with distinct "
+                f"{self.latency_target!r} and {self.pressure_target!r} "
+                f"heads; got heads={list(self.service.heads)}")
+        rule = Unroll(factors=tuple(factors), max_ops=None)
+        obj = OPT.Objective(
+            latency_target=self.latency_target,
+            pressure_target=self.pressure_target,
+            register_budget=self.register_budget).bind(self.service)
+        sites = rule.applicable(g)
+        cands = [rule.apply(g, s) for s in sites]
+        # ONE batched predict_all for the whole factor sweep; scores are
+        # per-iteration latency with the budget as a hard constraint
+        scores, preds = OPT.cost_graphs(
+            self.service, cands, obj, weights=[s.weight for s in sites])
+        lat, reg = preds[lat_t], preds[reg_t]
+        fs = [int(s.weight) for s in sites]
+        best = fs[int(np.argmin(scores))] if np.isfinite(scores).any() \
+            else 1
+        return {"best_factor": int(best),
+                "per_iter_latency": {f: float(lat[i] / f)
+                                     for i, f in enumerate(fs)},
+                "register_pressure": {f: float(reg[i])
+                                      for i, f in enumerate(fs)}}
+
+
+@dataclass
+class RecompileAdvisor:
+    """Dynamic-runtime decision: with operator shapes changed at runtime,
+    is the already-compiled code still good enough, or is recompilation
+    (expensive) worth it? Costing rides the search's batched path."""
+    service: CostModelService
+    threshold: float = 0.15   # recompile if predicted cost shifts > 15%
+    target: str = "latency_us"
+
+    def advise(self, compiled_graph: Graph, new_graph: Graph) -> Dict:
+        obj = OPT.Objective(latency_target=self.target,
+                            pressure_target=None).bind(self.service)
+        _, preds = OPT.cost_graphs(
+            self.service, [compiled_graph, new_graph], obj)
+        c_old, c_new = preds[obj.lat_t]
+        shift = abs(c_new - c_old) / max(abs(c_old), 1e-9)
+        return {"recompile": bool(shift > self.threshold),
+                "predicted_old": float(c_old),
+                "predicted_new": float(c_new),
+                "shift": float(shift)}

@@ -211,15 +211,15 @@ def sample_graph_stream(n_graphs: int, *, augment_factor: int = 1,
     rng = np.random.default_rng(seed)
     fams = families or sorted(samplers.SAMPLERS)
     if rewrite_factor:
-        # the rewrite registry (opt/rewrites.py) is not ported yet
-        raise NotImplementedError(
-            "rewrite_factor > 0 needs repro_torch.opt.rewrites, which is "
-            "not ported yet")
+        from repro_torch.opt import rewrites as RW   # opt sits above ir
+        rules = RW.default_rules()
     for i in range(n_graphs):
         g = samplers.sample_graph(rng, fams[i % len(fams)])
         yield g
         for _ in range(augment_factor - 1):
             yield AUG.augment(g, rng)
+        for _ in range(rewrite_factor):
+            yield RW.random_rewrite(g, rng, rules)
 
 
 def build_dataset(n_graphs: int = 2000, *, mode: str = "ops",

@@ -32,7 +32,8 @@ from repro_torch.core.models import DEFAULT_HEADS
 from repro_torch.core.server import CostModelServer
 from repro_torch.core.service import CostModelService
 from repro_torch.ir import dataset as DS
-from repro_torch.ir import samplers
+from repro_torch.ir import frontdoor as FD
+from repro_torch.ir import printer, samplers
 from repro_torch.kernels import conv1d_stack as K
 from repro_torch.kernels import lstm_scan as K2
 from repro_torch.kernels import ops
@@ -541,6 +542,38 @@ def test_server_bit_identical_to_direct_on_card(cuda, corpus, kind):
     for i in range(len(graphs)):
         for t in DEFAULT_HEADS:
             assert results[i][t][0] == want[t][i], (i, t)
+
+
+def test_predict_text_through_kernel_matches_plain_card_service(cuda,
+                                                               corpus):
+    """The front door on the card: printer texts and the affine example
+    through predict_text of the K1 service are TextPredictions whose
+    rows lie within TOL of the plain card service's, K1 launched once a
+    forward batch; fuzzed texts never fail at the predict stage."""
+    graphs, vocab = corpus
+    texts = [printer.to_mlir(g) for g in graphs[:16]] + [FD.AFFINE_EXAMPLE]
+    kern = _service(vocab, None, use_kernel=True)
+    plain = _service(vocab, None)
+    launches = []
+    for text in texts:
+        before = K.conv_forward_fused.launches
+        got = kern.predict_text(text)
+        launches.append(K.conv_forward_fused.launches - before)
+        want = plain.predict_text(text)
+        assert isinstance(got, FD.TextPrediction), got
+        assert isinstance(want, FD.TextPrediction), want
+        assert got.key == want.key
+    assert all(n <= 1 for n in launches) and sum(launches) > 0
+    entries = [(e.key, e.ids) for e in map(kern.ingest_text, texts)]
+    np.testing.assert_allclose(kern.predict_entries(entries),
+                               plain.predict_entries(entries),
+                               rtol=TOL, atol=TOL)
+    fuzz = FD.fuzz_corpus(texts[:4] + [FD.AFFINE_EXAMPLE], 60,
+                          np.random.default_rng(5))
+    for text in fuzz:
+        out = kern.predict_text(text)
+        assert not (isinstance(out, FD.IngestError)
+                    and out.stage == "predict"), out
 
 
 # ------------------------------------------------ TF32 and training (F1)

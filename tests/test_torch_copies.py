@@ -63,11 +63,6 @@ def test_dataset_texts_split_and_normalize():
     assert T_DS.default_buckets(256) == R_DS.default_buckets(256)
 
 
-def test_rewrite_factor_names_the_missing_module():
-    with pytest.raises(NotImplementedError, match="opt"):
-        T_DS.build_dataset(4, rewrite_factor=1)
-
-
 @pytest.mark.parametrize("family", sorted(R_SMP.SAMPLERS))
 def test_sampled_graphs_identical(family):
     r_rng, t_rng = np.random.default_rng(11), np.random.default_rng(11)

@@ -1,0 +1,615 @@
+"""The port's optimizer (``repro_torch.opt``) and compiler advisors
+against the reference's. The rewrite registry and the search code are
+held to the reference exactly: every rule at every site gives the same
+graph, and over an analyzer-oracle service both packages' searches make
+the same decisions. Then the contracts of ``tests/test_opt.py`` on the
+port's service, the closed-loop bar on a model the port's
+``TrainEngine`` trained, and the rewrite-augmented dataset build."""
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs.costmodel import CostModelConfig
+from repro.core import augment as R_AUG
+from repro.core import service as R_SVC
+from repro.core import tokenizer as R_TOK
+from repro.ir import analyzers as R_AN
+from repro.ir import dataset as R_DS
+from repro.ir import samplers as R_SMP
+from repro.ir.graph import Graph as R_Graph
+from repro.ir.graph import Tensor as R_Tensor
+from repro.opt import evaluate as R_OE
+from repro.opt import rewrites as R_RW
+from repro.opt import search as R_SE
+from repro_torch import params as P
+from repro_torch.core import augment as AUG
+from repro_torch.core import models as CM
+from repro_torch.core import service as T_SVC
+from repro_torch.core import tokenizer as TOK
+from repro_torch.core import trainer as TR
+from repro_torch.core.server import CostModelServer
+from repro_torch.ir import analyzers
+from repro_torch.ir import dataset as DS
+from repro_torch.ir import samplers
+from repro_torch.ir.graph import FUSED_OP, Graph, Tensor
+from repro_torch.opt import evaluate as OE
+from repro_torch.opt import rewrites as RW
+from repro_torch.opt import search as SE
+
+TOL = 2e-4       # normalized rows: float32 in another order than XLA's
+RTOL_DEN = 1e-3  # denormalized predictions
+
+
+# --------------------------------------------------------------- fixtures
+def _chain_graph(G=Graph, T=Tensor):
+    t = T((8, 128))
+    g = G(name="chain")
+    a = g.add_arg(t)
+    x = g.add_op("relu", [a], t)
+    x = g.add_op("tanh", [x], t)
+    x = g.add_op("sigmoid", [x], t)
+    g.outputs = [x]
+    return g
+
+
+def _dead_op_graph(G=Graph, T=Tensor):
+    t = T((4, 64))
+    g = G(name="dead")
+    a = g.add_arg(t)
+    live = g.add_op("relu", [a], t)
+    g.add_op("exp", [a], t)            # never used, not an output
+    g.outputs = [live]
+    return g
+
+
+def _site_pool(smp=samplers, G=Graph, T=Tensor):
+    """Sampled graphs from all five families + handcrafted graphs that
+    guarantee every rule has at least one applicable site."""
+    rng = np.random.default_rng(5)
+    pool = [smp.sample_graph(rng, fam)
+            for fam in sorted(smp.SAMPLERS) for _ in range(2)]
+    return pool + [_chain_graph(G, T), _dead_op_graph(G, T)]
+
+
+def _service_params(cfg, heads=CM.DEFAULT_HEADS):
+    """The port's init as numpy, embedding x20 and biases drawn, so the
+    predictions spread and a dropped bias would show."""
+    params = P.to_numpy(P.conv_init(
+        cfg, heads, generator=torch.Generator().manual_seed(0)))
+    params["emb"] = params["emb"] * 20.0
+    rng = np.random.default_rng(0)
+    layers = [*params["convs"], *params["fc"]]
+    if heads is not None:
+        layers += list(params["heads"].values())
+    for lyr in layers:
+        lyr["b"] = (rng.normal(size=lyr["b"].shape) * 0.1).astype(
+            np.float32)
+    return params
+
+
+@pytest.fixture(scope="module")
+def world():
+    """One param tree and vocab served by the reference service and the
+    port's CPU service (scheduling/caching semantics and parity)."""
+    cfg = CostModelConfig(name="opt-port-test", vocab_size=512,
+                          max_seq=160, embed_dim=16,
+                          conv_channels=(16,) * 6, fc_dims=(32, 16))
+    rng = np.random.default_rng(3)
+    graphs = [samplers.sample_graph(rng) for _ in range(24)]
+    vocab = TOK.fit_vocab([TOK.graph_tokens(g, "ops") for g in graphs],
+                          max_size=512)
+    r_vocab = R_TOK.Vocab(dict(vocab.token_to_id))
+    params = _service_params(cfg)
+    stats = {t: {"mu": 0.3, "sigma": 1.7} for t in CM.DEFAULT_HEADS}
+    ref = R_SVC.CostModelService("conv1d", cfg,
+                                 jax.tree.map(jax.numpy.asarray, params),
+                                 r_vocab, stats, mode="ops", max_seq=160)
+
+    def make(**kw):
+        return T_SVC.CostModelService("conv1d", cfg, params, vocab, stats,
+                                      mode="ops", max_seq=160,
+                                      device="cpu", **kw)
+    return {"cfg": cfg, "vocab": vocab, "ref": ref, "make": make,
+            "svc": make()}
+
+
+@pytest.fixture(scope="module")
+def untrained_service(world):
+    return world["svc"]
+
+
+@pytest.fixture(scope="module")
+def trained_service():
+    """The reference fixture's model, trained by the port's TrainEngine
+    on the CPU: a rewrite-augmented corpus, so fused/bf16 IR is
+    in-vocabulary and the search has real guidance."""
+    cfg = CostModelConfig(name="opt-trained", vocab_size=4096, max_seq=160,
+                          embed_dim=64, conv_channels=(64,) * 6,
+                          fc_dims=(256, 64))
+    ds = DS.build_dataset(600, mode="ops", max_seq=160, vocab_size=4096,
+                          augment_factor=1, rewrite_factor=1, seed=9)
+    tr, _ = ds.split(0.1)
+    # two threads: beside other test workers, a thread pool as wide as
+    # the machine oversubscribes its cores and the fit takes minutes
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    try:
+        res = TR.TrainEngine("conv1d", cfg, CM.DEFAULT_HEADS, steps=250,
+                             batch_size=128, lr=2e-3, seed=9,
+                             device="cpu").fit(tr)
+    finally:
+        torch.set_num_threads(n)
+    return T_SVC.CostModelService("conv1d", cfg, res.params, ds.vocab,
+                                  res.norm_stats, mode="ops", max_seq=160,
+                                  device="cpu")
+
+
+class CountingProxy:
+    """Duck-typed service wrapper counting predict_all calls."""
+
+    def __init__(self, svc):
+        self.svc = svc
+        self.calls = 0
+
+    @property
+    def heads(self):
+        return self.svc.heads
+
+    def resolve_target(self, t):
+        return self.svc.resolve_target(t)
+
+    def predict_all(self, graphs):
+        self.calls += 1
+        return self.svc.predict_all(graphs)
+
+
+class OracleService:
+    """Duck-typed service whose predictions are one package's analyzers:
+    the searches of both packages then see the same numbers exactly."""
+
+    def __init__(self, an):
+        self.an = an
+        self.heads = tuple(an.TARGETS)
+        self.calls = 0
+
+    def resolve_target(self, t):
+        if t in self.heads:
+            return t
+        raise KeyError(t)
+
+    def predict_all(self, graphs):
+        self.calls += 1
+        rows = [self.an.analyze(g) for g in graphs]
+        return {t: np.asarray([r[t] for r in rows], np.float64)
+                for t in self.heads}
+
+
+# ------------------------------------------- the copy against the reference
+@pytest.mark.parametrize("rule", sorted(RW.REGISTRY))
+def test_rule_matches_reference_at_every_site(rule):
+    """Same sites, the same graph from every apply, and the same
+    check_legal verdict against every other graph of the pool."""
+    t_rule, r_rule = RW.REGISTRY[rule], R_RW.REGISTRY[rule]
+    t_pool = _site_pool()
+    r_pool = _site_pool(R_SMP, R_Graph, R_Tensor)
+    fired = 0
+    for tg, rg in zip(t_pool, r_pool):
+        assert tg.struct_key() == rg.struct_key()
+        t_sites, r_sites = t_rule.applicable(tg), r_rule.applicable(rg)
+        assert [(s.rule, s.detail, s.weight) for s in t_sites] == \
+            [(s.rule, s.detail, s.weight) for s in r_sites]
+        for ts, rs in zip(t_sites, r_sites):
+            tn, rn = t_rule.apply(tg, ts), r_rule.apply(rg, rs)
+            assert tn.struct_key() == rn.struct_key()
+            assert TOK.graph_tokens(tn, "ops") == \
+                TOK.graph_tokens(rn, "ops")
+            fired += 1
+            for tq, rq in zip(t_pool, r_pool):
+                verdicts = []
+                for legal, a, b in ((RW.check_legal, tq, tn),
+                                    (R_RW.check_legal, rq, rn)):
+                    try:
+                        legal(a, b)
+                        verdicts.append("legal")
+                    except AssertionError as e:
+                        verdicts.append(str(e))
+                assert verdicts[0] == verdicts[1]
+    assert fired > 0
+    assert (t_rule.preserves_outputs, t_rule.preserves_dtypes) == \
+        (r_rule.preserves_outputs, r_rule.preserves_dtypes)
+
+
+def test_random_rewrite_and_transforms_match_reference():
+    """random_rewrite consumes the generator as the reference does (the
+    dataset build's contract); fuse_elementwise and unroll_graph agree."""
+    assert [r.name for r in RW.default_rules()] == \
+        [r.name for r in R_RW.default_rules()]
+    t_pool = _site_pool()
+    r_pool = _site_pool(R_SMP, R_Graph, R_Tensor)
+    t_rng, r_rng = np.random.default_rng(21), np.random.default_rng(21)
+    for tg, rg in zip(t_pool, r_pool):
+        for _ in range(3):
+            assert RW.random_rewrite(tg, t_rng).struct_key() == \
+                R_RW.random_rewrite(rg, r_rng).struct_key()
+        assert RW.fuse_elementwise(tg).struct_key() == \
+            R_RW.fuse_elementwise(rg).struct_key()
+        for f in (2, 4):
+            assert RW.unroll_graph(tg, f).struct_key() == \
+                R_RW.unroll_graph(rg, f).struct_key()
+    assert t_rng.integers(1 << 30) == r_rng.integers(1 << 30)
+
+
+# each search's arguments, built from one package's (search, rewrites)
+SEARCHES = {
+    "beam": lambda se, rw: dict(beam_width=3, max_steps=4,
+                                eval_budget=128),
+    "greedy": lambda se, rw: dict(greedy=True, max_steps=8),
+    "budget": lambda se, rw: dict(
+        beam_width=2, max_steps=3, eval_budget=40,
+        objective=se.Objective(register_budget=64.0)),
+    "unroll": lambda se, rw: dict(       # every rule, unroll admitted
+        beam_width=2, max_steps=2, preserve_outputs=False),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SEARCHES))
+def test_search_matches_reference_on_oracle(mode):
+    """The search code exactly: over an analyzer-oracle service both
+    packages pick the same best graph by the same sequence, with the
+    same scores, expansions, calls and candidates; replay reproduces."""
+    t_svc, r_svc = OracleService(analyzers), OracleService(R_AN)
+    t_kw, r_kw = SEARCHES[mode](SE, RW), SEARCHES[mode](R_SE, R_RW)
+    t_rng, r_rng = np.random.default_rng(10), np.random.default_rng(10)
+    improved = 0
+    for fam in sorted(samplers.SAMPLERS):
+        got = SE.beam_search(t_svc, samplers.sample_graph(t_rng, fam),
+                             record_candidates=True, **t_kw)
+        want = R_SE.beam_search(r_svc, R_SMP.sample_graph(r_rng, fam),
+                                record_candidates=True, **r_kw)
+        assert got.best.struct_key() == want.best.struct_key()
+        assert [(n, s.detail) for n, s in got.best_seq] == \
+            [(n, s.detail) for n, s in want.best_seq]
+        assert (got.root_score, got.best_score) == \
+            (want.root_score, want.best_score)
+        assert (got.expansions, got.evaluated, got.predict_calls) == \
+            (want.expansions, want.evaluated, want.predict_calls)
+        assert got.best_preds == want.best_preds
+        assert got.trace == want.trace
+        assert [(c.struct_key(), p) for c, p in got.candidates] == \
+            [(c.struct_key(), p) for c, p in want.candidates]
+        assert OE.replay(got, t_kw.get("rules")).struct_key() == \
+            got.best.struct_key()
+        improved += got.improved
+    assert t_svc.calls == r_svc.calls
+    assert improved > 0         # the searches did choose something
+
+
+def test_evaluate_search_matches_reference_on_oracle():
+    """evaluate_search's report, judged by the oracle and searched over
+    it, is the reference's number for number."""
+    t_rng, r_rng = np.random.default_rng(12), np.random.default_rng(12)
+    fams = sorted(samplers.SAMPLERS)
+    t_graphs = [samplers.sample_graph(t_rng, fams[i % 5])
+                for i in range(10)]
+    r_graphs = [R_SMP.sample_graph(r_rng, fams[i % 5]) for i in range(10)]
+    kw = dict(beam_width=3, max_steps=4, eval_budget=128)
+    got = OE.evaluate_search(OracleService(analyzers), t_graphs, **kw)
+    want = R_OE.evaluate_search(OracleService(R_AN), r_graphs, **kw)
+    assert got == want
+    assert got["summary"]["frac_improved_vs_root"] > 0
+
+
+# ------------------------------------------------------------------ fusion
+def test_fuse_emits_single_fused_op():
+    """A fused chain is ONE `fused` op with n_fused/chain attrs."""
+    g = _chain_graph()
+    f = RW.fuse_elementwise(g)
+    assert len(f.ops) == 1
+    op = f.ops[0]
+    assert op.opcode == FUSED_OP
+    assert op.attrs["n_fused"] == 3
+    assert op.attrs["chain"] == "relu|tanh|sigmoid"
+    assert f.values[f.outputs[0]] == g.values[g.outputs[0]]
+    assert "xpu.fused" in TOK.graph_tokens(f, "ops")
+    assert analyzers.latency_us(f) < analyzers.latency_us(g)
+    assert analyzers.valu_utilization(f) == analyzers.valu_utilization(g)
+
+
+def test_fuse_respects_fanout_and_outputs():
+    t = Tensor((8, 128))
+    g = Graph(name="fanout")
+    a = g.add_arg(t)
+    x = g.add_op("relu", [a], t)
+    y = g.add_op("tanh", [x], t)
+    z = g.add_op("exp", [x], t)        # second consumer of x
+    g.outputs = [y, z]
+    f = RW.fuse_elementwise(g)
+    assert len(f.ops) == 3             # nothing legal to fuse
+    g2 = _chain_graph()
+    s1 = RW.REGISTRY["fuse_elementwise"].applicable(g2)
+    partial = RW.REGISTRY["fuse_elementwise"].apply(
+        g2, RW.Site("fuse_elementwise", s1[0].detail[:2]))
+    full = RW.fuse_elementwise(partial)
+    assert len(full.ops) == 1 and full.ops[0].attrs["n_fused"] == 3
+
+
+# -------------------------------------------------------------- struct key
+def test_struct_key_invariant_under_renumber_and_reorder():
+    rng = np.random.default_rng(0)
+    for fam in sorted(samplers.SAMPLERS):
+        g = samplers.sample_graph(rng, fam)
+        k = g.struct_key()
+        for _ in range(4):
+            assert AUG.reorder_ops(g, rng).struct_key() == k
+        if g.ops:
+            mut = AUG.reorder_ops(g, rng)
+            mut.ops[-1].attrs = dict(mut.ops[-1].attrs, mutated=1)
+            assert mut.struct_key() != k
+
+
+def test_struct_key_is_the_service_lru_key(world):
+    """A re-scheduled spelling of a cached program is a cache hit."""
+    svc = world["make"]()
+    rng = np.random.default_rng(1)
+    g = samplers.sample_graph(rng, "bert")
+    assert svc.entry(g)[0] == g.struct_key()
+    reordered = AUG.reorder_ops(g, rng)
+    with svc._cache_lock:
+        svc._cache.clear()
+    out1 = svc.predict_all([g])
+    out2 = svc.predict_all([reordered])
+    assert len(svc._cache) == 1
+    for t in svc.heads:
+        np.testing.assert_array_equal(out1[t], out2[t])
+
+
+# ---------------------------------------------------------------- legality
+def test_rewrite_legality_every_rule_every_site():
+    """Every rule at every site yields a validate()-clean graph with the
+    output shapes kept; CSE/DCE never make an analyzer target worse."""
+    fired = {r.name: 0 for r in RW.default_rules()}
+    for g in _site_pool():
+        base = analyzers.analyze(g)
+        for rule in RW.default_rules():
+            for site in rule.applicable(g):
+                ng = rule.apply(g, site)
+                fired[rule.name] += 1
+                outs = [ng.values[o] for o in ng.outputs]
+                want = [g.values[o] for o in g.outputs]
+                if rule.preserves_outputs:
+                    assert [t.shape for t in outs] == \
+                        [t.shape for t in want]
+                    if rule.preserves_dtypes:
+                        assert outs == want
+                else:
+                    n = len(want)
+                    assert [t.shape for t in outs[:n]] == \
+                        [t.shape for t in want]
+                if rule.name in ("cse", "dce"):
+                    after = analyzers.analyze(ng)
+                    assert after["latency_us"] <= \
+                        base["latency_us"] * (1 + 1e-9)
+                    assert after["valu_utilization"] <= \
+                        base["valu_utilization"]
+                    assert after["register_pressure"] <= \
+                        base["register_pressure"] + analyzers.TILE_VREGS
+    assert all(n > 0 for n in fired.values()), fired
+
+
+def test_oracle_equivalence_hook():
+    g = _dead_op_graph()
+    site = RW.REGISTRY["dce"].applicable(g)[0]
+    ng = RW.REGISTRY["dce"].apply(g, site)
+    RW.check_legal(g, ng, oracle_check=lambda a, b: (
+        analyzers.latency_us(b) <= analyzers.latency_us(a)))
+    with pytest.raises(AssertionError, match="oracle"):
+        RW.check_legal(g, ng, oracle_check=lambda a, b: False)
+
+
+# ------------------------------------------------------------------ search
+def test_one_predict_all_per_frontier_expansion(untrained_service):
+    proxy = CountingProxy(untrained_service)
+    rng = np.random.default_rng(2)
+    g = samplers.sample_graph(rng, "bert")
+    res = SE.beam_search(proxy, g, beam_width=3, max_steps=4,
+                         eval_budget=64)
+    assert res.expansions >= 1
+    assert proxy.calls == 1 + res.expansions == res.predict_calls
+    assert res.evaluated <= 64
+
+
+def test_search_dedups_frontier_and_respects_budget(untrained_service):
+    proxy = CountingProxy(untrained_service)
+    rng = np.random.default_rng(4)
+    g = samplers.sample_graph(rng, "bert")
+    res = SE.beam_search(proxy, g, beam_width=4, max_steps=6,
+                         record_candidates=True, eval_budget=48)
+    keys = [c.struct_key() for c, _ in res.candidates]
+    assert len(keys) == len(set(keys))
+    assert res.evaluated <= 48
+
+
+def test_greedy_mode_stops_and_unroll_needs_optin(untrained_service):
+    g = _chain_graph()
+    res = SE.greedy_search(untrained_service, g,
+                           rules=[RW.REGISTRY["fuse_elementwise"]])
+    assert len(res.best_seq) <= 1
+    res2 = SE.beam_search(untrained_service, g,
+                          rules=[RW.Unroll(factors=(2,))], max_steps=2)
+    assert res2.evaluated == 0
+    res3 = SE.beam_search(untrained_service, g,
+                          rules=[RW.Unroll(factors=(2,))], max_steps=1,
+                          preserve_outputs=False)
+    assert res3.evaluated == 1
+
+
+def test_objective_register_budget_constrains(untrained_service):
+    obj = SE.Objective(register_budget=-1.0)
+    rng = np.random.default_rng(6)
+    g = samplers.sample_graph(rng, "bert")
+    res = SE.beam_search(untrained_service, g, objective=obj, max_steps=2)
+    assert res.best_seq == [] and res.best is g
+
+
+def _single_head(world, target="latency_us"):
+    params = _service_params(world["cfg"], heads=None)
+    return T_SVC.CostModelService(
+        "conv1d", world["cfg"], params, world["vocab"],
+        {"mu": 0.0, "sigma": 1.0}, mode="ops", max_seq=160,
+        target=target, device="cpu")
+
+
+def test_objective_refuses_budget_without_pressure_head(world):
+    single = _single_head(world)
+    with pytest.raises(ValueError, match="register_budget"):
+        SE.Objective(register_budget=64.0).bind(single)
+    assert SE.Objective().bind(single).reg_t is None
+
+
+def test_replay_reproduces_search(untrained_service):
+    rng = np.random.default_rng(8)
+    g = samplers.sample_graph(rng, "bert")
+    res = SE.beam_search(untrained_service, g, beam_width=3, max_steps=3)
+    assert OE.replay(res).struct_key() == res.best.struct_key()
+
+
+# ---------------------------------------------------------------- advisors
+def test_advisors_match_reference(world):
+    """The three advisors on the port's service give the reference
+    service's numbers on the same params (within the float32 limits)."""
+    svc, ref = world["make"](), world["ref"]
+    rng = np.random.default_rng(11)
+    bert = samplers.sample_graph(rng, "bert")
+    r_bert = R_SMP.sample_graph(np.random.default_rng(11), "bert")
+    assert bert.struct_key() == r_bert.struct_key()
+    got = T_SVC.FusionAdvisor(svc).advise(_chain_graph())
+    want = R_SVC.FusionAdvisor(ref).advise(_chain_graph(R_Graph, R_Tensor))
+    assert isinstance(got[0], bool)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=RTOL_DEN)
+    for budget in (1e9, 64.0):
+        got = T_SVC.UnrollAdvisor(svc, register_budget=budget).advise(
+            bert, factors=(1, 2, 4, 8))
+        want = R_SVC.UnrollAdvisor(ref, register_budget=budget).advise(
+            r_bert, factors=(1, 2, 4, 8))
+        assert set(got) == set(want)
+        for k in ("per_iter_latency", "register_pressure"):
+            assert set(got[k]) == set(want[k]) == {1, 2, 4, 8}
+            for f in want[k]:
+                np.testing.assert_allclose(got[k][f], want[k][f],
+                                           rtol=RTOL_DEN)
+        assert got["best_factor"] in (1, 2, 4, 8)
+    aug = AUG.augment(bert, np.random.default_rng(3))
+    r_aug = R_AUG.augment(r_bert, np.random.default_rng(3))
+    got = T_SVC.RecompileAdvisor(svc).advise(bert, aug)
+    want = R_SVC.RecompileAdvisor(ref).advise(r_bert, r_aug)
+    assert set(got) == set(want)
+    for k in ("predicted_old", "predicted_new"):
+        np.testing.assert_allclose(got[k], want[k], rtol=RTOL_DEN)
+    np.testing.assert_allclose(got["shift"], want["shift"], atol=1e-3)
+
+
+def test_unroll_advisor_refuses_single_head(world):
+    """An unnamed single head would answer both targets: refused, never
+    judged on latency numbers; a named one does not serve the other."""
+    with pytest.raises(ValueError, match="distinct"):
+        T_SVC.UnrollAdvisor(_single_head(world, None)).advise(
+            _chain_graph())
+    with pytest.raises(KeyError, match="register_pressure"):
+        T_SVC.UnrollAdvisor(_single_head(world)).advise(_chain_graph())
+
+
+def test_advisors_through_the_server(world):
+    """The advisors duck-type a CostModelServer as they do the service:
+    the same numbers bit for bit."""
+    svc = world["make"]()
+    rng = np.random.default_rng(11)
+    bert = samplers.sample_graph(rng, "bert")
+    aug = AUG.augment(bert, rng)
+    want = (T_SVC.FusionAdvisor(svc).advise(_chain_graph()),
+            T_SVC.UnrollAdvisor(svc, register_budget=1e9).advise(bert),
+            T_SVC.RecompileAdvisor(svc).advise(bert, aug))
+    with CostModelServer(world["make"](), max_batch=8,
+                         flush_us=500) as server:
+        got = (T_SVC.FusionAdvisor(server).advise(_chain_graph()),
+               T_SVC.UnrollAdvisor(server, register_budget=1e9).advise(
+                   bert),
+               T_SVC.RecompileAdvisor(server).advise(bert, aug))
+    assert got == want
+
+
+# ------------------------------------------------- closed loop / acceptance
+def test_beam_search_beats_fusion_baseline_on_oracle(trained_service):
+    """The reference's bar on a model the port trained: over 20 graphs
+    from all five samplers, beam search through the async gateway is no
+    worse than the greedy fusion baseline on the oracle, strictly better
+    on at least a quarter, one predict_all a frontier expansion."""
+    rng = np.random.default_rng(10)
+    fams = sorted(samplers.SAMPLERS)
+    graphs = [samplers.sample_graph(rng, fams[i % len(fams)])
+              for i in range(20)]
+    with CostModelServer(trained_service, max_batch=64,
+                         flush_us=500) as server:
+        report = OE.evaluate_search(server, graphs, beam_width=3,
+                                    max_steps=4, eval_budget=128)
+    s = report["summary"]
+    assert s["n_graphs"] == 20
+    assert s["mean_oracle_best_us"] <= s["mean_oracle_baseline_us"] + 1e-9
+    assert s["frac_strictly_better_than_baseline"] >= 0.25
+    for r in report["per_graph"]:
+        assert r["predict_calls"] == 1 + r["expansions"]
+    assert s["spearman_pred_oracle_pooled"] > 0.3
+    assert -1.0 <= s["spearman_pred_oracle"] <= 1.0
+
+
+def test_advisors_are_search_wrappers(trained_service):
+    rng = np.random.default_rng(11)
+    do_fuse, c0, c1 = T_SVC.FusionAdvisor(trained_service).advise(
+        _chain_graph())
+    assert isinstance(do_fuse, bool) and c0 > 0 and c1 > 0
+    unroll = T_SVC.UnrollAdvisor(trained_service, register_budget=1e9)
+    out = unroll.advise(samplers.sample_graph(rng, "bert"),
+                        factors=(1, 2, 4))
+    assert out["best_factor"] in (1, 2, 4)
+    assert set(out["per_iter_latency"]) == {1, 2, 4}
+
+
+# ----------------------------------------------------------------- dataset
+def test_dataset_rewrite_factor_streaming_determinism():
+    kw = dict(mode="ops", max_seq=96, vocab_size=1024, augment_factor=1,
+              rewrite_factor=1, seed=13)
+    d1 = DS.build_dataset(30, **kw)
+    d2 = DS.build_dataset(30, **kw)
+    assert len(d1) == 60
+    np.testing.assert_array_equal(d1.ids, d2.ids)
+    for t in d1.targets:
+        np.testing.assert_array_equal(d1.targets[t], d2.targets[t])
+        assert np.isfinite(d1.targets[t]).all()
+    assert any((d1.ids[2 * i + 1] != d1.ids[2 * i]).any()
+               for i in range(30))
+
+
+@pytest.mark.parametrize("layout", ["dense", "bucketed"])
+@pytest.mark.parametrize("mode", ["ops", "ops_operands"])
+def test_build_dataset_rewrite_factor_identical(layout, mode):
+    """The rewrite-augmented corpus is the reference's: vocab, ids,
+    targets and bucket rows."""
+    kw = dict(mode=mode, max_seq=128, vocab_size=1024, seed=9,
+              augment_factor=2, rewrite_factor=1, layout=layout)
+    ref = R_DS.build_dataset(40, **kw)
+    got = DS.build_dataset(40, **kw)
+    assert len(got) == len(ref) == 120
+    assert got.vocab.token_to_id == ref.vocab.token_to_id
+    assert set(got.targets) == set(ref.targets)
+    for k in ref.targets:
+        np.testing.assert_array_equal(got.targets[k], ref.targets[k])
+    np.testing.assert_array_equal(got.seq_lens, ref.seq_lens)
+    np.testing.assert_array_equal(got.dense_ids(), ref.dense_ids())
+    if layout == "bucketed":
+        assert set(got.bucket_ids) == set(ref.bucket_ids)
+        for b in ref.bucket_ids:
+            np.testing.assert_array_equal(got.bucket_ids[b],
+                                          ref.bucket_ids[b])
+            np.testing.assert_array_equal(got.bucket_rows[b],
+                                          ref.bucket_rows[b])

@@ -106,8 +106,37 @@ Phases, each printing JSON lines:
    ingest and encode, ``predict_text`` p50/p99, the search's seconds,
    calls and launches a graph, how many best graphs the CPU service
    also picks, and the card's busy share over one profiled search.
+10. ``replicated`` — the replicated serving tier on the card, the serve
+   phases' params and vocabulary. A ``ServiceSpec`` of a K1 service
+   (``use_kernel=True``) spawns 4 replicas (``start_replicas``, the
+   kernel library built in this process first); 512 requests (half
+   repeats) from 8 threads on 3 ``ReplicaClient`` objects: rows bit for
+   bit a direct K1 ``predict_all``, every replica's stats name the card,
+   report no ``nvcc`` run and K1 launches equal to its forward batches
+   (read from the children before and after), at least 3 replicas
+   serve; with the replica LRUs cleared a client without its own LRU
+   is answered from the shared cache with no forward; 32 traced
+   requests assemble complete span trees across processes. A
+   ``FleetDriver`` of 4 search workers over 16 graphs of all samplers
+   (beam 3, 4 steps, 128 candidates): every pass's best graph and cost
+   equal ``search_pool`` over the direct K1 service, no worker
+   initialises CUDA; steady candidates/s beside the reference bench's
+   thread fleet on a K1 server. 2 LSTM replicas through K2's ids
+   entry: rows bit for bit a direct K2 service's, launches equal to
+   forward batches, no launch of the xw entry. The reference bench's
+   chaos plan (corrupt, kill, wedge, drop, delay, dup, unwedge) through
+   a ``FaultyTransport`` on 2 K1 replicas under a
+   ``ReplicaSupervisor``, held to the reference gate's checks
+   (availability >= 0.99, no non-degraded round off the fault-free one,
+   kill and wedge applied, the plan exhausted, >= 2 recoveries within
+   120 s, a clean final round, the counters in the ``MetricsRegistry``
+   snapshot), and the respawned children ran no ``nvcc``. Reports the
+   card's free memory before and after each tier starts, start and
+   respawn seconds, and the phase's seconds.
 
-Then one ``{"kernels": [...]}`` line, and the last line
+Then one ``{"kernels": [...]}`` line (K1's and K2's ``launches`` add
+the replicated phase's, counted in the replicas, under
+``launches_by_path``), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is not 0 and no result line is printed; so does a machine without
 a CUDA card, or a directory without the repository's ``src/``.
@@ -1797,6 +1826,468 @@ def phase_compiler(card: str) -> dict:
     return out
 
 
+# replicated phase: the tier's load, the fleet's searches (the compiler
+# phase's settings) and the reference gate's recovery bound
+REPL_GRAPHS, REPL_THREADS = 256, 8      # 512 requests, half repeats
+FLEET_WORKERS, FLEET_POOL = 4, 16
+FLEET_SEARCH = dict(beam_width=3, max_steps=4, eval_budget=128)
+CHAOS_RECOVERY_S = 120.0                # benchmarks/gate.py's bound
+
+
+def tier_stats(client) -> list:
+    """Every replica's ``MSG_STATS`` payload, in replica order; each
+    replica must answer."""
+    stats = client.replica_stats()
+    check(all(s is not None for s in stats),
+          f"replicated: {sum(s is None for s in stats)} replicas did not "
+          f"answer the stats RPC")
+    return sorted(stats, key=lambda s: s["replica_id"])
+
+
+def tier_work(before, after, kernel: str) -> list:
+    """Per replica, ``kernel``'s launches and the forward batches between
+    two stats snapshots (the children's counts from the first)."""
+    return [(a["kernel_launches"][kernel] - b["kernel_launches"][kernel],
+             a["forward_batches"] - b["forward_batches"])
+            for b, a in zip(before, after)]
+
+
+def drive_tier(clients, graphs, n_threads: int) -> tuple:
+    """``n_threads`` threads ask the tier for ``graphs``, one graph a
+    request: thread k on ``clients[k % len(clients)]``, its share of the
+    graphs twice (the second pass repeats, from the client's LRU).
+    Returns ({head: values in graph order}, latencies in s, wall s)."""
+    import numpy as np
+    per = len(graphs) // n_threads
+    rows, lat, errors = {}, [], []
+    lock = threading.Lock()
+
+    def client(k: int) -> None:
+        mine = range(per * k, per * k + per)
+        try:
+            for i in [*mine, *mine]:
+                ts = time.perf_counter()
+                out = clients[k % len(clients)].predict_all([graphs[i]])
+                dt = time.perf_counter() - ts
+                with lock:
+                    rows[i] = out
+                    lat.append(dt)
+        except Exception as e:                     # surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads),
+          "replicated: client threads ended")
+    check(not errors, f"replicated: client errors {errors[:3]}")
+    check(len(rows) == per * n_threads, "replicated: every graph answered")
+    heads = list(rows[0])
+    return ({t: np.concatenate([rows[i][t] for i in range(len(rows))])
+             for t in heads}, lat, wall)
+
+
+def same_rows(a, b) -> bool:
+    import numpy as np
+    return set(a) == set(b) and all(np.array_equal(a[t], b[t]) for t in a)
+
+
+def check_replicas(stats, name: str, what: str) -> None:
+    """Every replica serves on the card named ``name`` and built no
+    kernel library itself."""
+    for s in stats:
+        check(s["device"] == {"type": "cuda", "name": name},
+              f"{what}: replica {s['replica_id']} on {s['device']}")
+        check(s["nvcc_runs"] == 0,
+              f"{what}: replica {s['replica_id']} ran nvcc "
+              f"{s['nvcc_runs']} times")
+
+
+def thread_fleet(svc, pool, n_workers: int, rounds: int) -> tuple:
+    """The reference bench's thread-fleet baseline: ``n_workers`` threads
+    search ``pool`` through one ``CostModelServer`` over ``svc``, with
+    incremental hashing off. Returns (wall s, candidates costed)."""
+    from repro_torch.core.server import CostModelServer
+    from repro_torch.ir import graph as IRG
+    from repro_torch.opt import search as SE
+    prev = IRG.set_incremental_hashing(False)
+    server = CostModelServer(svc, max_batch=svc.max_batch, flush_us=150)
+    server.start(warmup=False)
+    try:
+        cands, errors = [], []
+
+        def worker(w: int) -> None:
+            try:
+                for _ in range(rounds):
+                    cands.append(sum(r.evaluated + 1 for r in
+                                     SE.search_pool(server, pool, offset=w,
+                                                    **FLEET_SEARCH)))
+            except Exception as e:                 # surfaced below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=worker, args=(w,))
+                   for w in range(n_workers)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        check(not errors, f"replicated: thread fleet errors {errors[:3]}")
+        return wall, sum(cands)
+    finally:
+        server.stop()
+        IRG.set_incremental_hashing(prev)
+
+
+def phase_replicated(card: str) -> dict:
+    """The replicated serving tier on the card (module docstring, item
+    10): a 4-replica conv1d tier through K1 with its fleet, a 2-replica
+    LSTM tier through K2, and the chaos plan on 2 K1 replicas under a
+    supervisor."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core import models as CM
+    from repro_torch.core.service import CostModelService
+    from repro_torch.ir import samplers
+    from repro_torch.obs import (MetricsRegistry, Tracer, assemble,
+                                 completeness, register_router,
+                                 register_supervisor)
+    from repro_torch.opt import search as SE
+    from repro_torch.serving import (FaultEvent, FaultPlan, FaultyTransport,
+                                     FleetDriver, QueueTransport,
+                                     ReplicaClient, ReplicaSupervisor,
+                                     ServiceSpec, start_replicas)
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    ds, stats, _ = serve_world()
+    heads = CM.DEFAULT_HEADS
+    rng = np.random.default_rng(2)
+    graphs = [samplers.sample_graph(rng) for _ in range(REPL_GRAPHS)]
+    fams = sorted(samplers.SAMPLERS)
+    pool = [samplers.sample_graph(rng, fams[i % len(fams)])
+            for i in range(FLEET_POOL)]
+
+    def service(kind, params, **kw):
+        return CostModelService(kind, COSTMODEL_BASE, params, ds.vocab,
+                                stats, mode="ops", max_seq=256,
+                                max_batch=64, use_kernel=True, **kw)
+
+    def free_mib() -> float:
+        torch.cuda.synchronize()
+        return torch.cuda.mem_get_info()[0] / 2 ** 20
+
+    # 1. the conv1d tier through K1: 4 replicas, clients 0-3 for the
+    # fleet's workers, 4-6 for the load, 7 traced, 8 without its LRU
+    conv_params = seeded_params(COSTMODEL_BASE, heads, 0)
+    conv = service("conv1d", conv_params)
+    direct = conv.predict_all(graphs)
+    spec = ServiceSpec.from_service(conv)
+    check(spec.device == "cuda" and spec.use_kernel,
+          f"replicated: spec on {spec.device}, use_kernel "
+          f"{spec.use_kernel}")
+    free0 = free_mib()
+    t0 = time.perf_counter()
+    tier = start_replicas(spec, 4, n_clients=9, flush_us=300.0,
+                          start_timeout_s=120.0, obs_trace=True)
+    start_s = time.perf_counter() - t0
+    free1 = free_mib()
+    try:
+        clients = [ReplicaClient(tier.client_handle(c)) for c in (4, 5, 6)]
+        check(all(c.fsvc.device == "cpu" for c in clients),
+              "replicated: the router's featurizer is on the CPU")
+        before = tier_stats(clients[0])
+        check_replicas(before, name, "replicated k1")
+        got, lat, wall = drive_tier(clients, graphs, REPL_THREADS)
+        after = tier_stats(clients[0])
+        work = tier_work(before, after, "conv_forward_fused")
+        check(all(n_l == n_b for n_l, n_b in work),
+              f"replicated k1: launches == forward batches a replica, "
+              f"got {work}")
+        serving = sum(n_b > 0 for _, n_b in work)
+        check(serving >= 3, f"replicated k1: {serving} of 4 replicas "
+              f"served a batch")
+        identical = same_rows(got, direct)
+        check(identical, "replicated k1: tier rows bit-identical to a "
+              "direct K1 predict_all")
+        check(all(c.fsvc.forward_batches == 0 for c in clients),
+              "replicated k1: a featurizer ran a forward")
+        lat_ms = np.asarray(lat) * 1e3
+        emit({"phase": "replicated", "case": "k1_tier", "replicas": 4,
+              "requests": len(lat), "requests_per_s": len(lat) / wall,
+              "p50_ms": float(np.percentile(lat_ms, 50)),
+              "p99_ms": float(np.percentile(lat_ms, 99)),
+              "launches_batches": work, "replicas_serving": serving,
+              "identical_to_direct": identical, "start_s": start_s,
+              "free_mib_before": free0, "free_mib_ready": free1,
+              "mib_per_replica": (free0 - free1) / 4, "card": card})
+
+        # the shared tier: replica LRUs cleared, a client without its
+        # own LRU is answered from the shared cache, with no forward
+        clients[0].clear_caches(remote=True)
+        nolru = ReplicaClient(tier.client_handle(8), local_cache=False)
+        s0 = tier_stats(nolru)
+        again = nolru.predict_all(graphs)
+        s1 = tier_stats(nolru)
+        shared = sum(a["shared_hits"] - b["shared_hits"]
+                     for b, a in zip(s0, s1))
+        fwd = sum(n_b for _, n_b in tier_work(s0, s1, "conv_forward_fused"))
+        n_keys = len({g.struct_key() for g in graphs})
+        check(shared == n_keys and fwd == 0,
+              f"replicated k1: {shared} shared-cache hits for {n_keys} "
+              f"keys, {fwd} forward batches")
+        check(same_rows(again, direct),
+              "replicated k1: shared-cache rows bit-identical")
+
+        # traces across processes: a cold pass (forward spans) and a
+        # warm pass (replica-LRU hits)
+        tracer = Tracer(sample_every=1, proc="client")
+        traced = ReplicaClient(tier.client_handle(7), local_cache=False,
+                               tracer=tracer)
+        fresh = [samplers.sample_graph(rng) for _ in range(24)]
+        for g in [*fresh, *fresh[:8]]:
+            traced.predict_all([g])
+        trees = assemble(tracer.recorder.snapshot())
+        comp = completeness(trees)
+        with_replica = sum(any(p.startswith("replica-") for p in t.procs)
+                           for t in trees.values())
+        check(len(trees) == 32 and comp >= 0.99 and with_replica == 32,
+              f"replicated k1: {len(trees)} traces, completeness {comp}, "
+              f"{with_replica} with replica spans")
+        emit({"phase": "replicated", "case": "k1_shared_and_traces",
+              "shared_hits": shared, "keys": n_keys, "traces": len(trees),
+              "completeness": comp, "card": card})
+
+        # 2. the fleet: 4 spawned search workers over the tier, held to
+        # search_pool over the direct K1 service
+        want = {r.root.struct_key(): (r.best.struct_key(), r.best_score)
+                for r in SE.search_pool(conv, pool, **FLEET_SEARCH)}
+        t1 = time.perf_counter()
+        drv = FleetDriver.start(tier, pool, FLEET_WORKERS,
+                                search_kw=FLEET_SEARCH,
+                                start_timeout_s=120.0)
+        fleet_start_s = time.perf_counter() - t1
+        try:
+            warm = drv.run_pass()
+            drv.clear()
+            tier.shared_cache.clear()
+            cold = drv.run_pass()
+            steady = max((drv.run_pass(rounds=2) for _ in range(2)),
+                         key=lambda p: p["candidates"] / p["wall_s"])
+            wstats = drv.stats()
+        finally:
+            drv.stop()
+        same_best = all(b == want for p in (warm, cold, steady)
+                        for b in p["best"])
+        check(same_best, "replicated fleet: a worker's best graph or cost "
+              "differs from the direct search's")
+        worker_cuda = [w["cuda_initialized"] for w in wstats]
+        check(not any(worker_cuda),
+              f"replicated fleet: workers initialised CUDA {worker_cuda}")
+        end = tier_stats(clients[0])
+        check_replicas(end, name, "replicated k1")
+        work = tier_work(before, end, "conv_forward_fused")
+        check(all(n_l == n_b for n_l, n_b in work),
+              f"replicated k1 + fleet: launches == forward batches a "
+              f"replica, got {work}")
+        k1_launches = sum(n_l for n_l, _ in work)
+    finally:
+        tier.stop()
+    base = service("conv1d", conv_params, fast_encode=False)
+    base.warmup()
+    thread_fleet(base, pool, FLEET_WORKERS, 1)          # warm, untimed
+    with base._cache_lock:
+        base._cache.clear()
+        base._ids_cache.clear()
+    base_cold = thread_fleet(base, pool, FLEET_WORKERS, 1)
+    base_steady = max((thread_fleet(base, pool, FLEET_WORKERS, 2)
+                       for _ in range(2)), key=lambda p: p[1] / p[0])
+    cps = steady["candidates"] / steady["wall_s"]
+    base_cps = base_steady[1] / base_steady[0]
+    emit({"phase": "replicated", "case": "fleet", "workers": FLEET_WORKERS,
+          "pool": FLEET_POOL, **FLEET_SEARCH, "same_best_as_direct":
+          same_best, "worker_cuda_initialized": worker_cuda,
+          "start_s": fleet_start_s,
+          "cold_candidates_per_s": cold["candidates"] / cold["wall_s"],
+          "steady_candidates_per_s": cps,
+          "thread_fleet_cold_candidates_per_s": base_cold[1] / base_cold[0],
+          "thread_fleet_steady_candidates_per_s": base_cps,
+          "thread_fleet": "the reference bench's baseline: threads through "
+                          "one K1 server, fast_encode and incremental "
+                          "hashing off",
+          "steady_vs_thread_fleet": cps / base_cps,
+          "k1_launches": k1_launches, "card": card})
+
+    # 3. the LSTM tier through K2's ids entry
+    lstm = service("lstm", seeded_lstm_params(COSTMODEL_BASE, heads, 0))
+    lgraphs = graphs[:REPL_GRAPHS // 2]
+    ldirect = lstm.predict_all(lgraphs)
+    free2 = free_mib()
+    ltier = start_replicas(ServiceSpec.from_service(lstm), 2, n_clients=1,
+                           flush_us=300.0, start_timeout_s=120.0)
+    free3 = free_mib()
+    try:
+        lc = ReplicaClient(ltier.client_handle(0))
+        lb = tier_stats(lc)
+        check_replicas(lb, name, "replicated k2")
+        lgot, llat, lwall = drive_tier([lc], lgraphs, REPL_THREADS)
+        la = tier_stats(lc)
+    finally:
+        ltier.stop()
+    lwork = tier_work(lb, la, "lstm_scan_ids")
+    check(all(n_l == n_b for n_l, n_b in lwork) and
+          sum(n_b for _, n_b in lwork) > 0,
+          f"replicated k2: ids-entry launches == forward batches a "
+          f"replica, got {lwork}")
+    check(all(s["kernel_launches"]["lstm_scan_fused"] == 0 for s in la),
+          "replicated k2: a replica launched the xw entry")
+    lidentical = same_rows(lgot, ldirect)
+    check(lidentical,
+          "replicated k2: tier rows bit-identical to a direct K2 service")
+    k2_launches = sum(n_l for n_l, _ in lwork)
+    emit({"phase": "replicated", "case": "k2_tier", "replicas": 2,
+          "requests": len(llat), "requests_per_s": len(llat) / lwall,
+          "launches_batches": lwork, "identical_to_direct": lidentical,
+          "free_mib_before": free2, "free_mib_ready": free3,
+          "mib_per_replica": (free2 - free3) / 2, "card": card})
+
+    # 4. chaos: the reference bench's fault plan on 2 supervised K1
+    # replicas; round 0 is the fault-free reference
+    crng = np.random.default_rng(0)
+    cgraphs = [samplers.sample_graph(crng) for _ in range(24)]
+    u = len({g.struct_key() for g in cgraphs})
+    plan = FaultPlan(seed=0, events=[
+        FaultEvent(at=u, kind="corrupt", key=cgraphs[0].struct_key()),
+        FaultEvent(at=u + 1, kind="corrupt", key=cgraphs[1].struct_key()),
+        FaultEvent(at=2 * u, kind="kill", replica=0),
+        FaultEvent(at=12 * u, kind="wedge", replica=1),
+        FaultEvent(at=20 * u, kind="drop", replica=0, count=3),
+        FaultEvent(at=20 * u + 1, kind="delay", replica=1, count=2,
+                   delay_s=0.05),
+        FaultEvent(at=20 * u + 2, kind="dup", replica=0, count=2),
+        FaultEvent(at=40 * u, kind="unwedge", replica=1)])
+    cwant = conv.predict_all(cgraphs)
+    ctier = start_replicas(spec, 2, n_clients=2, flush_us=300.0,
+                           start_timeout_s=120.0)
+    pids0 = [p.pid for p in ctier.procs]
+    reg = MetricsRegistry()
+    rounds = []
+    try:
+        sup = ReplicaSupervisor(ctier, heartbeat_s=0.25,
+                                heartbeat_timeout_s=3.0,
+                                restart_backoff_s=0.05,
+                                start_timeout_s=120.0).start()
+        try:
+            handle = ctier.client_handle(0)
+            ft = FaultyTransport(QueueTransport(handle), plan, tier=ctier)
+            client = ReplicaClient(handle, transport=ft, local_cache=False,
+                                   timeout_s=1.0, deadline_s=3.0,
+                                   cooldown_s=0.05, oracle_fallback=True,
+                                   jitter_seed=0)
+            register_supervisor(reg, sup)
+            register_router(reg, client)
+            ref = None
+
+            def one_round():
+                d0 = client.degraded_count
+                t0 = time.perf_counter()
+                try:
+                    got, err = client.predict_all(cgraphs), None
+                except Exception as e:
+                    got, err = None, repr(e)
+                rec = {"wall_s": time.perf_counter() - t0,
+                       "ok": err is None,
+                       "degraded": client.degraded_count - d0,
+                       "error": err}
+                if got is not None and ref is not None \
+                        and rec["degraded"] == 0:
+                    rec["bit_equal"] = same_rows(got, ref)
+                rounds.append(rec)
+                return got
+
+            ref = one_round()
+            check(ref is not None and same_rows(ref, cwant),
+                  f"replicated chaos: the fault-free round equals a direct "
+                  f"K1 predict_all ({rounds[0]['error']})")
+            stop_at = time.monotonic() + 120.0
+            while time.monotonic() < stop_at:
+                one_round()
+                time.sleep(0.02)      # the op clock must not outrun the
+                st = sup.stats()      # heartbeat's wall clock
+                if len(rounds) >= 60 and plan.exhausted \
+                        and st["restarts_recovered"] >= 2 \
+                        and not st["respawning"]:
+                    break
+            final_clean = False
+            for _ in range(10):
+                one_round()
+                r = rounds[-1]
+                if r["ok"] and r["degraded"] == 0 and r.get("bit_equal"):
+                    final_clean = True
+                    break
+                time.sleep(0.5)
+            st = sup.stats()
+            snap = reg.snapshot()["metrics"]
+            router = client.stats()
+            cstats = tier_stats(ReplicaClient(ctier.client_handle(1)))
+            pids1 = [p.pid for p in ctier.procs]
+        finally:
+            sup.stop()
+    finally:
+        ctier.stop()
+    avail = sum(r["ok"] for r in rounds) / len(rounds)
+    nd = [r for r in rounds if r.get("bit_equal") is not None]
+    diverged = sum(not r["bit_equal"] for r in nd)
+    applied = {}
+    for e in ft.log:
+        if e["applied"]:
+            applied[e["kind"]] = applied.get(e["kind"], 0) + 1
+    recovered = [r["recovered_in_s"] for r in st["restart_log"]
+                 if "recovered_in_s" in r]
+    check(avail >= 0.99, f"replicated chaos: availability {avail}")
+    check(diverged == 0, f"replicated chaos: {diverged} of {len(nd)} "
+          f"non-degraded rounds diverged")
+    check(applied.get("kill", 0) >= 1 and applied.get("wedge", 0) >= 1
+          and plan.exhausted, f"replicated chaos: faults applied "
+          f"{applied}, plan exhausted {plan.exhausted}")
+    check(st["restarts_recovered"] >= 2,
+          f"replicated chaos: {st['restarts_recovered']} recoveries")
+    check(st["recovery_s_max"] <= CHAOS_RECOVERY_S,
+          f"replicated chaos: recovery took {st['recovery_s_max']} s")
+    check(final_clean, "replicated chaos: no clean round after the plan")
+    check("supervisor.restarts_total" in snap
+          and "router.degraded_count" in snap,
+          "replicated chaos: counters missing from the registry snapshot")
+    check(all(a != b for a, b in zip(pids0, pids1)),
+          f"replicated chaos: slots not respawned ({pids0} -> {pids1})")
+    check_replicas(cstats, name, "replicated chaos (respawned)")
+    emit({"phase": "replicated", "case": "chaos", "rounds": len(rounds),
+          "availability": avail, "non_degraded_rounds": len(nd),
+          "degraded_rounds": sum(r["degraded"] > 0 for r in rounds),
+          "diverged": diverged, "final_clean": final_clean,
+          "plan_exhausted": plan.exhausted, "faults_applied": applied,
+          "restarts_total": st["restarts_total"],
+          "restarts_recovered": st["restarts_recovered"],
+          "recovery_s": recovered, "recovery_s_max": st["recovery_s_max"],
+          "respawned_nvcc_runs": [s["nvcc_runs"] for s in cstats],
+          "router": {k: router[k] for k in
+                     ("shed_count", "degraded_count", "deadline_expired",
+                      "recv_errors", "failures", "unhealthy_now")},
+          "mean_round_s": float(np.mean([r["wall_s"] for r in rounds])),
+          "card": card})
+    out = {"phase": "replicated", "case": "path",
+           "k1_launches": k1_launches, "k2_launches": k2_launches,
+           "phase_seconds": time.perf_counter() - t_phase, "card": card}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1818,15 +2309,18 @@ def main() -> int:
     tower = phase_tower()
     phase_train(dev["nvidia_smi"])
     compiler = phase_compiler(dev["nvidia_smi"])
+    replicated = phase_replicated(dev["nvidia_smi"])
     t64, t4, t1 = (kern["timings"][b] for b in (64, 4, 1))
     l64, l1 = lstm["timings"][64], lstm["timings"][1]
     w64, w1 = tower["timings"][64], tower["timings"][1]
     emit({"kernels": [{
         "name": "conv_forward_fused", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-        "launches": serve["launches"] + compiler["launches"],
+        "launches": serve["launches"] + compiler["launches"]
+        + replicated["k1_launches"],
         "launches_by_path": {"serve": serve["launches"],
-                             "compiler": compiler["launches"]},
+                             "compiler": compiler["launches"],
+                             "replicated": replicated["k1_launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": t64["ms"], "plain_ms": t64["plain_ms"],
         "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],
@@ -1847,7 +2341,9 @@ def main() -> int:
         "card": dev["nvidia_smi"]}, {
         "name": "lstm_scan_ids", "route": "cuda",
         "source": LSTM_SOURCE, "replaces": LSTM_TPU_KERNEL,
-        "launches": serve_lstm["launches"],
+        "launches": serve_lstm["launches"] + replicated["k2_launches"],
+        "launches_by_path": {"serve_lstm": serve_lstm["launches"],
+                             "replicated": replicated["k2_launches"]},
         "max_abs_err": lstm["max_abs_err"],
         "ms": l64["ms"], "plain_ms": l64["plain_ms"],
         "bound_ms": l64["bound_ms"], "bound_by": l64["bound_by"],

@@ -250,6 +250,10 @@ class CostModelService:
         # with serving/) — flagged so "the fleet was down and the static
         # cost model answered" is a counted, observable event
         self.degraded_preds = 0
+        # batched forward passes dispatched (warm-up's shapes excluded):
+        # on the card with use_kernel, one kernel launch each, which the
+        # replicated tier's stats hold against the kernels' counters
+        self.forward_batches = 0
         # wall-clock split of the serving hot path, for benchmark
         # attribution (tokenize/encode/hash vs forward)
         self._phase_s = {"hash_s": 0.0, "encode_s": 0.0, "forward_s": 0.0}
@@ -581,7 +585,9 @@ class CostModelService:
             if on_card:
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(self._device))
-        self._phase_add("forward_s", time.perf_counter() - t0)
+        with self._cache_lock:
+            self.forward_batches += 1
+            self._phase_s["forward_s"] += time.perf_counter() - t0
         return out, event, n
 
     def forward_collect(self, handle: Tuple[Any, Any, int]) -> np.ndarray:

@@ -45,6 +45,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()                       # guards _name_locks
 _name_locks: Dict[str, threading.Lock] = {}     # one per source
 _libs: Dict[str, ctypes.CDLL] = {}
+# names this process ran nvcc for, in order: a replica tier's children
+# report it, so a child that built instead of loading shows
+compiled: List[str] = []
 
 
 def nvcc_path() -> str:
@@ -86,6 +89,7 @@ def _compile(name: str, out: Path) -> None:
             f"{proc.stderr}{proc.stdout}")
     out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
     os.replace(tmp, out)
+    compiled.append(name)
 
 
 def load(name: str) -> ctypes.CDLL:

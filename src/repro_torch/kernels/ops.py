@@ -19,6 +19,8 @@ kernels' plain versions.
 """
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 from repro_torch.core.models import fc_finish, model_heads
@@ -45,6 +47,14 @@ def build(kind: str) -> None:
     """Compile (or load) the library of ``kind``'s fused forward now
     rather than at its first launch."""
     _build.load(_KERNEL_LIB[kind])
+
+
+def launch_counts(kind: str) -> Dict[str, int]:
+    """This process's launch counters of the kernels ``kind``'s fused
+    forward can reach, by wrapper name ({} for a kind without one)."""
+    fns = {"conv1d": (conv_forward_fused,),
+           "lstm": (lstm_scan_ids, lstm_scan_fused)}.get(kind, ())
+    return {fn.__name__: fn.launches for fn in fns}
 
 
 def _stacked_heads(params):

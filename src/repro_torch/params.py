@@ -105,9 +105,11 @@ def from_numpy(tree, device, dtype: Optional[torch.dtype] = None):
 
 
 def to_numpy(tree):
-    """torch leaves -> numpy arrays (bf16 widens to float32: numpy has
-    no bfloat16)."""
+    """torch (or numpy) leaves -> numpy arrays (bf16 widens to float32:
+    numpy has no bfloat16)."""
     def conv(t):
+        if not torch.is_tensor(t):
+            return np.asarray(t)
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()

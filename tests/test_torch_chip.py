@@ -702,3 +702,87 @@ def test_engine_resume_on_card_is_exact(cuda, tmp_path):
         assert b.device.type == "cuda"
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------------- the replicated tier
+def _tier_world(cfg, n_graphs):
+    """Seeded graphs, their vocab, and a K1 card service over seeded
+    params (biases nonzero), max_batch 16."""
+    rng = np.random.default_rng(5)
+    graphs = [samplers.sample_graph(rng) for _ in range(n_graphs)]
+    vocab = TOK.fit_vocab([TOK.graph_tokens(g, "ops") for g in graphs],
+                          max_size=cfg.vocab_size)
+    stats = {t: {"mu": 0.2, "sigma": 1.3} for t in DEFAULT_HEADS}
+    svc = CostModelService("conv1d", cfg, seeded_params(cfg, DEFAULT_HEADS,
+                                                        0),
+                           vocab, stats, mode="ops", max_seq=256,
+                           max_batch=16, use_kernel=True)
+    return graphs, svc
+
+
+def test_replicated_k1_tier_on_card(cuda):
+    """Two spawned replicas serve through K1 on the card: rows bit for
+    bit the direct service's, each replica's stats name the card, no
+    replica ran nvcc, and each launched K1 once for each forward batch
+    it ran after warm-up."""
+    from repro_torch.serving import (ReplicaClient, ServiceSpec,
+                                     start_replicas)
+    graphs, svc = _tier_world(CFGS.COSTMODEL_BASE, 48)
+    want = svc.predict_all(graphs)
+    tier = start_replicas(ServiceSpec.from_service(svc), 2, n_clients=1,
+                          flush_us=300.0, start_timeout_s=120.0)
+    try:
+        client = ReplicaClient(tier.client_handle(0))
+        assert client.fsvc.device == "cpu"
+        before = client.replica_stats()
+        got = client.predict_all(graphs)
+        after = client.replica_stats()
+    finally:
+        tier.stop()
+    for t in want:
+        np.testing.assert_array_equal(got[t], want[t])
+    name = torch.cuda.get_device_name(0)
+    batches = 0
+    for b, a in zip(before, after):
+        assert a["device"] == {"type": "cuda", "name": name}
+        assert a["nvcc_runs"] == 0
+        launched = a["kernel_launches"]["conv_forward_fused"] - \
+            b["kernel_launches"]["conv_forward_fused"]
+        ran = a["forward_batches"] - b["forward_batches"]
+        assert launched == ran
+        batches += ran
+    assert batches > 0
+    assert client.fsvc.forward_batches == 0
+
+
+def test_start_replicas_builds_kernels_before_spawning(cuda, tmp_path,
+                                                       monkeypatch):
+    """With an empty build directory, start_replicas builds K1's library
+    in the parent before the first child starts; the children only load
+    it."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import (ReplicaClient, ServiceSpec,
+                                     start_replicas)
+    from repro_torch.serving.replica import ReplicaTier
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "compiled", [])
+    built_at_spawn = []
+    spawn = ReplicaTier.spawn
+
+    def watched(self, i):
+        built_at_spawn.append(_build.library_path(K.LIB).exists())
+        return spawn(self, i)
+    monkeypatch.setattr(ReplicaTier, "spawn", watched)
+    _, svc = _tier_world(CFGS.COSTMODEL_SMALL, 8)
+    assert not _build.library_path(K.LIB).exists()
+    tier = start_replicas(ServiceSpec.from_service(svc), 2, n_clients=1,
+                          start_timeout_s=120.0)
+    try:
+        stats = ReplicaClient(tier.client_handle(0)).replica_stats()
+    finally:
+        tier.stop()
+    assert built_at_spawn == [True, True]
+    assert _build.compiled == [K.LIB]
+    assert [s["nvcc_runs"] for s in stats] == [0, 0]

@@ -25,7 +25,9 @@ Phases, each printing JSON lines:
    group of biases zeroed, or with a pool that drops the last tile's
    positions, misses the limit by 10x, so the parity checks can fail.
    The ladder check moves each row one position in its batch, so B=1
-   holds a real row. Times the kernel and the plain version in turns
+   holds a real row. The serve and optimize CLIs' own widths (vocab
+   4096, S in {64, 128, 160}: the buckets of their max_seq 160, whose
+   last tile is short). Times the kernel and the plain version in turns
    with CUDA events at B in {64, 4, 1} (``ms``, as since K1 was ported),
    beside them the card's time alone and the host's (``device_ms``,
    ``host_ms``), prints each B's tile plan and the kernel's ptxas
@@ -134,15 +136,48 @@ Phases, each printing JSON lines:
    card's free memory before and after each tier starts, start and
    respawn seconds, and the phase's seconds.
 
+11. ``families`` — the FC (bag-of-tokens) and transformer families at
+   COSTMODEL_BASE widths (embedding 64, FC 256/64; 2 blocks of 4 heads
+   of 16), params from a seed with every bias, the position table and
+   the LayerNorm gains drawn. With torch's default precision switches:
+   the plain card forward within 2e-4 of the CPU's at S in {32, 256}, B
+   in {1, 5, 64}, ragged ids with an all-PAD row that must be finite,
+   both head layouts; bf16 params against f32 keep each head's ranking
+   (Spearman >= 0.99). A plain card ``CostModelService`` behind a
+   ``CostModelServer`` for each family, 256 requests from 8 threads:
+   rows within 2e-4 of a direct plain forward and within 1e-5 of a
+   service padding every row to max_seq. ``TrainEngine`` on the card,
+   100 steps at B=64: the loss below half its first value, the first
+   10 losses within TRAIN_LOSS_RTOL of the CPU's. Reports the forward
+   ms at B=64, S=256 (f32 beside bf16) and ms a training step.
+12. ``cli`` — the port's CLIs on the card, each called as
+   ``main(argv)`` in this process with its output captured.
+   ``launch.train --preset base --target all`` for each of the four
+   ``--model``s, 30 steps into a temporary ``--ckpt-dir``: a second call
+   reports the run complete, and ``--eval-only --device cpu`` on the
+   same directory gives metrics within 1e-3 relative of the card's.
+   ``launch.serve --kernel`` (256 requests, the LRU, the advisors) and
+   ``launch.optimize --kernel`` (8 graphs): K1's launches over each call
+   equal the warm-up shapes and forward batches of its card services,
+   and every row a call's service served through K1 (its LRU), with a
+   ragged batch of each bucket, is within 2e-4 of a plain card service
+   on the same params, vocabulary and stats.
+   ``launch.serve --kernel --replicas 2 --supervise --obs`` (every
+   request traced): both replicas on the card with no ``nvcc`` run and
+   K1 launches equal to their warm-up shapes and forward batches, then
+   ``launch.obs report`` on its JSONL exits 0 with every trace
+   complete.
+
 Then one ``{"kernels": [...]}`` line (K1's and K2's ``launches`` add
-the replicated phase's, counted in the replicas, under
-``launches_by_path``), and the last line
+the replicated phase's, counted in the replicas, and K1's the cli
+phase's, under ``launches_by_path``), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is not 0 and no result line is printed; so does a machine without
 a CUDA card, or a directory without the repository's ``src/``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -393,7 +428,8 @@ def phase_kernels() -> dict:
     import torch
     from repro_torch import params as P
     from repro_torch.configs.costmodel import (COSTMODEL_BASE,
-                                               COSTMODEL_OPERAND)
+                                               COSTMODEL_OPERAND,
+                                               CostModelConfig)
     from repro_torch.core.models import DEFAULT_HEADS
     from repro_torch.kernels import conv1d_stack as K
     from repro_torch.kernels import ops
@@ -403,6 +439,10 @@ def phase_kernels() -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     max_err = 0.0
+    # launch.serve's and launch.optimize's conv1d
+    CLI_CFG = CostModelConfig(name="cli", vocab_size=4096, max_seq=160,
+                              embed_dim=64, conv_channels=(64,) * 6,
+                              fc_dims=(256, 64))
 
     def params_for(cfg, heads, dtype=None):
         return P.from_numpy(seeded_params(cfg, heads, 1), dev, dtype)
@@ -442,6 +482,12 @@ def phase_kernels() -> dict:
         for B in (1, 5):
             cases.append(compare(COSTMODEL_OPERAND, heads, 1024, B,
                                  label="operand_f32"))
+        # the serve and optimize CLIs' config: its buckets below 256,
+        # S=160's last tile holding 4 positions at B <= 16
+        for S in (64, 128, 160):
+            for B in (1, 5, 64):
+                cases.append(compare(CLI_CFG, heads, S, B,
+                                     label="cli_f32"))
         cases.append(compare(COSTMODEL_BASE, heads, 256, 64,
                              torch.bfloat16, label="base_bf16"))
         cases.append(compare(COSTMODEL_OPERAND, heads, 1024, 5,
@@ -1040,6 +1086,42 @@ def serve_world():
     return ds, stats, graphs
 
 
+def drive_clients(server, graphs, n_threads: int = 8) -> tuple:
+    """``n_threads`` client threads, each submitting its share of
+    ``graphs`` (the same number each) twice over, the second pass
+    repeats, one request at a time. Returns ({graph index: row},
+    latencies in s, wall s)."""
+    per = len(graphs) // n_threads
+    rows, lat = {}, []
+    lock = threading.Lock()
+    errors = []
+
+    def client(k: int) -> None:
+        mine = list(range(per * k, per * k + per))
+        try:
+            for i in mine + mine:                  # second pass: repeats
+                ts = time.perf_counter()
+                row = server.submit(graphs[i]).result(timeout=120)
+                dt = time.perf_counter() - ts
+                with lock:
+                    rows[i] = row
+                    lat.append(dt)
+        except Exception as e:                     # surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "client threads ended")
+    check(not errors, f"client errors {errors[:3]}")
+    return rows, lat, wall
+
+
 def run_serve(phase: str, kind: str, params, kernel, plain,
               card: str) -> dict:
     """A main path: ``CostModelService(kind, use_kernel=True)`` on the
@@ -1070,33 +1152,7 @@ def run_serve(phase: str, kind: str, params, kernel, plain,
     warm_s = time.perf_counter() - t1
     kernel.launches = 0                     # served batches from here on
     forward_s0 = svc.phase_stats()["forward_s"]
-    rows, lat = {}, []
-    lock = threading.Lock()
-    errors = []
-
-    def client(k: int) -> None:
-        mine = list(range(16 * k, 16 * k + 16))
-        try:
-            for i in mine + mine:                  # second pass: repeats
-                ts = time.perf_counter()
-                row = server.submit(graphs[i]).result(timeout=120)
-                dt = time.perf_counter() - ts
-                with lock:
-                    rows[i] = row
-                    lat.append(dt)
-        except Exception as e:                     # surfaced below
-            errors.append(repr(e))
-
-    threads = [threading.Thread(target=client, args=(k,))
-               for k in range(8)]
-    t2 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
-    wall = time.perf_counter() - t2
-    check(not any(t.is_alive() for t in threads), "client threads ended")
-    check(not errors, f"client errors {errors[:3]}")
+    rows, lat, wall = drive_clients(server, graphs)
     forward_s = svc.phase_stats()["forward_s"] - forward_s0
     preds = server.predict_all(graphs[:8])
     snap = server.metrics_snapshot()
@@ -2288,6 +2344,453 @@ def phase_replicated(card: str) -> dict:
     return out
 
 
+# families phase: the FC and transformer families at COSTMODEL_BASE
+# widths; the embedding x20 so outputs reach a few tenths
+FAMILY_EMB_SCALE = 20.0
+FAMILY_STEPS = 100
+
+
+def seeded_family_params(kind: str, cfg, heads, seed: int):
+    """``fc_init``'s or ``xformer_init``'s shapes and scales from a seed,
+    the embedding scaled by FAMILY_EMB_SCALE, and what the inits leave
+    0, 1 or small drawn: every bias N(0, 0.1), the position table
+    N(0, 0.1), the LayerNorm gains 1 + N(0, 0.1)."""
+    import torch
+    from repro_torch.core import models as CM
+    g = torch.Generator().manual_seed(seed)
+    p = CM.get_model(kind)[0](cfg, heads, generator=g)
+    p["emb"] = p["emb"] * FAMILY_EMB_SCALE
+    for lyr in [*p.get("fc", []), *p.get("heads", {}).values(),
+                *([p["head"]] if "head" in p else [])]:
+        lyr["b"] = torch.randn(lyr["b"].shape, generator=g) * 0.1
+    if "pos" in p:
+        p["pos"] = torch.randn(p["pos"].shape, generator=g) * 0.1
+    for blk in p.get("blocks", []):
+        for k in ("ln1", "ln2"):
+            blk[k] = 1.0 + torch.randn(blk[k].shape, generator=g) * 0.1
+    return p
+
+
+def head_columns(out, heads):
+    """A model's output as a (B, n_heads) float32 numpy array."""
+    import torch
+    cols = [out[t] for t in heads] if heads else [out]
+    return torch.stack([c.float() for c in cols], 1).cpu().numpy()
+
+
+def family_forward(kind: str) -> dict:
+    """The plain card forward against the CPU's with torch's default
+    precision switches, bf16 against f32 params, and the card's time a
+    forward at B=64, S=256."""
+    import numpy as np
+    import torch
+    from repro_torch import params as P
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core import models as CM
+    apply = CM.get_model(kind)[1]
+    rng = np.random.default_rng(30)
+    err, cases = 0.0, 0
+    torch.backends.cudnn.allow_tf32 = True      # torch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for heads in (None, CM.DEFAULT_HEADS):
+            p = seeded_family_params(kind, COSTMODEL_BASE, heads, 1)
+            p_cpu, p_card = P.from_numpy(p, "cpu"), P.from_numpy(p, "cuda")
+            for S in (32, 256):
+                for B in (1, 5, 64):
+                    ids = mixed_ids(rng, B, S, COSTMODEL_BASE.vocab_size)
+                    with torch.inference_mode():
+                        got = head_columns(apply(
+                            p_card, torch.from_numpy(ids).cuda()), heads)
+                        want = head_columns(apply(
+                            p_cpu, torch.from_numpy(ids)), heads)
+                    check(bool(np.isfinite(got).all()),
+                          f"{kind}: card rows finite (B={B}, S={S}, "
+                          f"all-PAD row {B > 1})")
+                    err = max(err, float(np.abs(got - want).max()))
+                    cases += 1
+    finally:
+        torch.backends.cudnn.allow_tf32 = False     # the f32 yardsticks
+    check(err <= TOL, f"{kind}: card vs CPU err {err}")
+    heads = CM.DEFAULT_HEADS
+    p = seeded_family_params(kind, COSTMODEL_BASE, heads, 2)
+    p32 = P.from_numpy(p, "cuda")
+    p16 = P.from_numpy(p, "cuda", torch.bfloat16)
+    ids = torch.from_numpy(long_ids(rng, 64, 256,
+                                    COSTMODEL_BASE.vocab_size)).cuda()
+    with torch.inference_mode():
+        a, b = apply(p32, ids), apply(p16, ids)
+        check(all(b[t].dtype == torch.bfloat16 for t in heads),
+              f"{kind}: bf16 params gave another output dtype")
+        rho = min(spearman(a[t].cpu().numpy(), b[t].float().cpu().numpy())
+                  for t in heads)
+        check(rho >= SPEARMAN_MIN, f"{kind}: bf16 Spearman {rho}")
+        ms, ms16 = time_pair(lambda: apply(p32, ids),
+                             lambda: apply(p16, ids))
+    return {"cases": cases, "max_abs_err_vs_cpu": err,
+            "bf16_spearman_min": rho, "forward_ms": ms,
+            "forward_ms_bf16": ms16, "shape": {"B": 64, "S": 256}}
+
+
+def family_serve(kind: str, params, ds, stats, graphs) -> dict:
+    """A plain card service behind a server, 256 requests from 8
+    threads: rows within TOL of a direct plain forward, and equal to a
+    service padding every row to max_seq within 1e-5."""
+    import numpy as np
+    import torch
+    from repro_torch import params as P
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core import models as CM
+    from repro_torch.core.server import CostModelServer
+    from repro_torch.core.service import CostModelService
+
+    def service(buckets=None):
+        return CostModelService(kind, COSTMODEL_BASE, params, ds.vocab,
+                                stats, mode="ops", max_seq=256,
+                                max_batch=64, buckets=buckets)
+    svc = service()
+    server = CostModelServer(svc, max_batch=64, flush_us=2000)
+    server.start(warmup=True)
+    try:
+        rows, lat, wall = drive_clients(server, graphs)
+        snap = server.metrics_snapshot()
+    finally:
+        server.stop()
+    check(len(rows) == len(graphs), f"{kind}: every graph answered")
+    got = np.stack([rows[i] for i in range(len(graphs))])
+    check(bool(np.isfinite(got).all()), f"{kind}: served rows finite")
+    check(snap["cache_hits"] > 0, f"{kind}: LRU hits {snap['cache_hits']}")
+    dev_p = P.from_numpy(params, "cuda")
+    apply = CM.get_model(kind)[1]
+    entries = [svc.entry(g) for g in graphs]
+    by_len = {}
+    for i, (_, ids) in enumerate(entries):
+        by_len.setdefault(len(ids), []).append(i)
+    err = 0.0
+    with torch.inference_mode():
+        for idx in by_len.values():
+            ids = torch.from_numpy(np.stack([entries[i][1] for i in idx]))
+            want = head_columns(apply(dev_p, ids.cuda()), svc.heads)
+            err = max(err, float(np.abs(got[idx] - want).max()))
+    check(err <= TOL, f"{kind}: served rows vs plain forward err {err}")
+    padded = service(buckets=(256,))
+    full = padded.predict_entries([padded.entry(g) for g in graphs])
+    bucket_err = float(np.abs(got - full).max())
+    check(bucket_err <= 1e-5, f"{kind}: bucketed rows vs max_seq-padded "
+          f"rows err {bucket_err}")
+    lat_ms = np.asarray(lat) * 1e3
+    return {"requests": len(lat), "requests_per_s": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "batches": snap["batches"], "cache_hits": snap["cache_hits"],
+            "buckets": len(by_len), "max_abs_err_vs_plain": err,
+            "bucketed_vs_padded_err": bucket_err}
+
+
+def family_train(kind: str, tr) -> dict:
+    """FAMILY_STEPS steps at B=64 on the card: the loss below half its
+    first value; the first 10 losses within TRAIN_LOSS_RTOL of the same
+    engine on the CPU (stopped there by the supervisor's preemption);
+    the card's ms a step after 10 steps."""
+    import signal
+    import numpy as np
+    import torch
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core import models as CM
+    from repro_torch.core import trainer as TR
+    kw = dict(steps=FAMILY_STEPS, batch_size=64, log_every=1)
+    marks = {}
+
+    def on_step(step, dt):
+        if step == 10:
+            torch.cuda.synchronize()
+            marks["t"] = time.perf_counter()
+        if step == FAMILY_STEPS:
+            torch.cuda.synchronize()
+            marks["end"] = time.perf_counter()
+    card = TR.TrainEngine(kind, COSTMODEL_BASE, CM.DEFAULT_HEADS,
+                          **kw).fit(tr, on_step=on_step)
+
+    def preempt(step, dt):
+        if step == 10:
+            os.kill(os.getpid(), signal.SIGTERM)
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        cpu = TR.TrainEngine(kind, COSTMODEL_BASE, CM.DEFAULT_HEADS,
+                             device="cpu", install_sigterm=True,
+                             **kw).fit(tr, on_step=preempt)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    first, last = card.history[0][1], card.history[-1][1]
+    check(last < 0.5 * first, f"{kind}: loss {first} -> {last}: not "
+          f"below half")
+    card_l = np.array([v for _, v in card.history[:10]])
+    cpu_l = np.array([v for _, v in cpu.history])
+    check(len(cpu_l) == 10, f"{kind}: CPU run stopped after {len(cpu_l)}")
+    loss_err = float(np.max(np.abs(card_l - cpu_l) / np.abs(cpu_l)))
+    check(loss_err <= TRAIN_LOSS_RTOL, f"{kind}: card losses {loss_err} "
+          f"off the CPU's (limit {TRAIN_LOSS_RTOL})")
+    return {"steps": FAMILY_STEPS, "batch_size": 64, "first_loss": first,
+            "last_loss": last, "card_vs_cpu_loss_rel_err": loss_err,
+            "ms_per_step": (marks["end"] - marks["t"]) * 1e3
+            / (FAMILY_STEPS - 10)}
+
+
+def phase_families(card: str) -> dict:
+    """The FC and transformer families on the card at COSTMODEL_BASE
+    (see the module docstring)."""
+    from repro_torch.core import models as CM
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    t_phase = time.perf_counter()
+    ds, stats, graphs = serve_world()
+    tr, _ = ds.split(0.1)
+    out = {}
+    for kind in ("fc", "xformer"):
+        t0 = time.perf_counter()
+        fwd = family_forward(kind)
+        params = seeded_family_params(kind, COSTMODEL_BASE,
+                                      CM.DEFAULT_HEADS, 3)
+        served = family_serve(kind, params, ds, stats, graphs)
+        trained = family_train(kind, tr)
+        out[kind] = {"forward": fwd, "serve": served, "train": trained,
+                     "seconds": time.perf_counter() - t0}
+        emit({"phase": "families", "kind": kind, **out[kind],
+              "card": card})
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "families", "case": "times",
+          "forward_ms": {k: out[k]["forward"]["forward_ms"]
+                         for k in ("fc", "xformer")},
+          "train_ms_per_step": {k: out[k]["train"]["ms_per_step"]
+                                for k in ("fc", "xformer")},
+          "phase_seconds": out["phase_seconds"], "card": card})
+    return out
+
+
+# cli phase: the port's CLIs at small step counts
+CLI_STEPS = 30
+CLI_TRAIN = ["--preset", "base", "--target", "all", "--steps",
+             str(CLI_STEPS), "--n-graphs", "300", "--save-every",
+             str(CLI_STEPS)]
+
+
+@contextlib.contextmanager
+def tracked_services():
+    """Every ``CostModelService`` made inside: the CLIs build theirs
+    inside ``main``, and neither returns it."""
+    from repro_torch.core.service import CostModelService
+    made = []
+    init = CostModelService.__post_init__
+
+    def post_init(self):
+        init(self)
+        made.append(self)
+    CostModelService.__post_init__ = post_init
+    try:
+        yield made
+    finally:
+        CostModelService.__post_init__ = init
+
+
+def run_cli(main, argv):
+    """``main(argv)`` with its standard output captured and K1's counter
+    set to 0 just before. Returns its value, text and seconds, K1's
+    launches in the call, the launches owed (each card service with
+    ``use_kernel`` launches once a warm-up shape and once a forward
+    batch) and those services."""
+    import io
+    from types import SimpleNamespace
+    from repro_torch.kernels import conv1d_stack as K
+    buf = io.StringIO()
+    with tracked_services() as made, contextlib.redirect_stdout(buf):
+        K.conv_forward_fused.launches = 0
+        t0 = time.perf_counter()
+        out = main(argv)
+        secs = time.perf_counter() - t0
+        launches = K.conv_forward_fused.launches
+    k1 = [s for s in made if s.use_kernel and s.device != "cpu"]
+    return SimpleNamespace(
+        out=out, text=buf.getvalue(), seconds=secs, launches=launches,
+        owed=sum(s.warmup_shapes + s.forward_batches for s in k1),
+        k1_services=k1)
+
+
+def served_vs_plain(svc, seed: int) -> dict:
+    """The rows a K1 card service served (its LRU, with the bucket-padded
+    ids of its ids cache), and a ragged batch of each of its buckets
+    through it, against a plain card service built from the same
+    params, vocabulary and stats on the same ids; within TOL."""
+    import numpy as np
+    from repro_torch.serving import ServiceSpec
+    plain = ServiceSpec.from_service(svc).build(use_kernel=False)
+    with svc._cache_lock:
+        ids_of = {k: v[0] for k, v in svc._ids_cache.items()}
+    served = [(k, ids_of[k], row) for k, row in svc.export_cache()
+              if k in ids_of]
+    n_served = len(served)
+    rng = np.random.default_rng(seed)
+    for S in svc.buckets:
+        ids = ragged_ids(rng, 5, S, svc.cfg.vocab_size)
+        ids[1] = long_ids(rng, 1, S, svc.cfg.vocab_size)[0]
+        keys = [f"ragged:{S}:{i}" for i in range(len(ids))]
+        rows = svc.forward_entries(list(zip(keys, ids)))
+        served += list(zip(keys, ids, rows))
+    by_bucket = {}
+    for key, ids, row in served:
+        by_bucket.setdefault(len(ids), []).append((key, ids, row))
+    err = 0.0
+    for group in by_bucket.values():
+        want = plain.forward_entries([(k, i) for k, i, _ in group])
+        got = np.stack([r for _, _, r in group])
+        err = max(err, float(np.abs(got - want).max()))
+    check(n_served > 0, "no served row of a CLI's K1 service to compare")
+    check(set(by_bucket) == set(svc.buckets),
+          f"compared buckets {sorted(by_bucket)} of {svc.buckets}")
+    check(err <= TOL, f"K1 rows of a CLI's service vs plain: err {err}")
+    return {"served_rows": n_served, "max_abs_err": err,
+            "rows_by_bucket": {S: len(g) for S, g in
+                               sorted(by_bucket.items())}}
+
+
+def rel_close(a: dict, b: dict, rtol: float) -> float:
+    """Largest relative gap of two {head: {metric: value}} trees; raises
+    past ``rtol``."""
+    worst = 0.0
+    for t in b:
+        for k, v in b[t].items():
+            gap = abs(a[t][k] - v) / max(abs(v), 1e-9)
+            worst = max(worst, gap)
+    check(worst <= rtol, f"metrics {worst} apart (limit {rtol})")
+    return worst
+
+
+def phase_cli(card: str) -> dict:
+    """The port's CLIs on the card, called as ``main(argv)`` (see the
+    module docstring)."""
+    import signal
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import obs as OBS
+    from repro_torch.launch import optimize, serve, train
+    from repro_torch.obs import assemble, completeness
+    t_phase = time.perf_counter()
+    prev = signal.getsignal(signal.SIGTERM)   # the train CLI sets one
+    out = {"train": {}}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = os.path.join(tmp, "ds.npz")
+            for model in ("conv1d", "fc", "lstm", "xformer"):
+                args = [*CLI_TRAIN, "--model", model, "--dataset", data,
+                        "--ckpt-dir", os.path.join(tmp, model)]
+                run = run_cli(train.main, args)
+                card_m = run.out
+                check(f"trained {CLI_STEPS} steps" in run.text,
+                      f"cli train {model}: {run.text[-300:]}")
+                again = run_cli(train.main, args)
+                check("run already complete" in again.text,
+                      f"cli train {model} resumed: {again.text[-300:]}")
+                cpu = run_cli(train.main,
+                              [*args, "--eval-only", "--device", "cpu"])
+                check(all(np.isfinite(v) for m in card_m.values()
+                          for v in m.values()), f"{model}: metrics finite")
+                out["train"][model] = {
+                    "seconds": run.seconds,
+                    "eval_only_cpu_seconds": cpu.seconds,
+                    "resumed_vs_trained_rel": rel_close(again.out, card_m,
+                                                        1e-5),
+                    "cpu_vs_card_rel": rel_close(cpu.out, card_m, 1e-3),
+                    "rmse_norm": {t: m["rmse_norm"]
+                                  for t, m in card_m.items()}}
+            emit({"phase": "cli", "case": "train", **out["train"],
+                  "card": card})
+
+            run = run_cli(serve.main, [
+                "--kernel", "--requests", "256", "--train-steps", "50",
+                "--n-graphs", "300"])
+            snap = run.out
+            check(run.launches > 0 and run.launches == run.owed,
+                  f"cli serve: {run.launches} K1 launches, {run.owed} "
+                  f"warm-up shapes and forward batches")
+            check("recompile advisor:" in run.text and snap["shed"] == 0,
+                  f"cli serve: {run.text[-300:]}")
+            check(len(run.k1_services) == 1, f"cli serve: "
+                  f"{len(run.k1_services)} K1 services")
+            out["serve"] = {"seconds": run.seconds,
+                            "launches": run.launches,
+                            "batches": snap["batches"],
+                            "cache_hits": snap["cache_hits"],
+                            "p50_ms": snap["latency_p50_us"] / 1e3,
+                            "p99_ms": snap["latency_p99_us"] / 1e3,
+                            "vs_plain": served_vs_plain(
+                                run.k1_services[0], 40)}
+            emit({"phase": "cli", "case": "serve", **out["serve"]})
+
+            jsonl = os.path.join(tmp, "obs.jsonl")
+            run = run_cli(serve.main, [
+                "--kernel", "--replicas", "2", "--supervise", "--obs",
+                "--obs-sample", "1", "--obs-jsonl", jsonl,
+                "--requests", "128", "--train-steps", "20",
+                "--n-graphs", "300"])
+            stats = run.out
+            check(len(stats) == 2 and all(
+                s["device"]["type"] == "cuda" and s["nvcc_runs"] == 0
+                and s["forward_batches"] > 0 and s["warmup_shapes"] > 0
+                and s["kernel_launches"]["conv_forward_fused"]
+                == s["warmup_shapes"] + s["forward_batches"]
+                for s in stats), f"cli replicas: {stats}")
+            check("supervisor: active=2" in run.text, f"cli replicas: "
+                  f"{run.text[-300:]}")
+            report = run_cli(OBS.main, ["report", jsonl])
+            spans, _ = OBS.read_records(jsonl)
+            trees = assemble(spans)
+            check(report.out == 0 and trees and all(
+                t.complete for t in trees.values())
+                and completeness(trees) == 1.0
+                and "INCOMPLETE" not in report.text,
+                f"cli obs report: {report.text[:300]}")
+            out["replicated"] = {
+                "seconds": run.seconds, "traces": len(trees),
+                "spans": len(spans),
+                "replica_forward_batches": [s["forward_batches"]
+                                            for s in stats],
+                "replica_warmup_shapes": [s["warmup_shapes"]
+                                          for s in stats],
+                "replica_k1_launches": [
+                    s["kernel_launches"]["conv_forward_fused"]
+                    for s in stats]}
+            emit({"phase": "cli", "case": "replicated",
+                  **out["replicated"]})
+
+            run = run_cli(optimize.main, [
+                "--kernel", "--eval-graphs", "8", "--n-graphs", "300",
+                "--train-steps", "50"])
+            s = run.out["summary"]
+            check(run.launches > 0 and run.launches == run.owed,
+                  f"cli optimize: {run.launches} K1 launches, {run.owed} "
+                  f"warm-up shapes and forward batches")
+            check(s["n_graphs"] == 8 and np.isfinite(
+                s["oracle_improvement_mean"]), f"cli optimize: {s}")
+            check(len(run.k1_services) == 1, f"cli optimize: "
+                  f"{len(run.k1_services)} K1 services")
+            out["optimize"] = {"seconds": run.seconds,
+                               "launches": run.launches,
+                               "predict_calls": s["predict_calls"],
+                               "candidates_costed":
+                               s["candidates_costed"],
+                               "oracle_improvement_mean":
+                               s["oracle_improvement_mean"],
+                               "vs_plain": served_vs_plain(
+                                   run.k1_services[0], 41)}
+            emit({"phase": "cli", "case": "optimize", **out["optimize"]})
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    out["launches"] = out["serve"]["launches"] + \
+        out["optimize"]["launches"]
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "cli", "case": "path", "launches": out["launches"],
+          "phase_seconds": out["phase_seconds"], "card": card})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2310,6 +2813,8 @@ def main() -> int:
     phase_train(dev["nvidia_smi"])
     compiler = phase_compiler(dev["nvidia_smi"])
     replicated = phase_replicated(dev["nvidia_smi"])
+    phase_families(dev["nvidia_smi"])
+    cli = phase_cli(dev["nvidia_smi"])
     t64, t4, t1 = (kern["timings"][b] for b in (64, 4, 1))
     l64, l1 = lstm["timings"][64], lstm["timings"][1]
     w64, w1 = tower["timings"][64], tower["timings"][1]
@@ -2317,10 +2822,11 @@ def main() -> int:
         "name": "conv_forward_fused", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
         "launches": serve["launches"] + compiler["launches"]
-        + replicated["k1_launches"],
+        + replicated["k1_launches"] + cli["launches"],
         "launches_by_path": {"serve": serve["launches"],
                              "compiler": compiler["launches"],
-                             "replicated": replicated["k1_launches"]},
+                             "replicated": replicated["k1_launches"],
+                             "cli": cli["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": t64["ms"], "plain_ms": t64["plain_ms"],
         "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],

@@ -1,23 +1,33 @@
-"""The cost model's regressors in PyTorch: the Conv1D+MaxPool+FC family
-and the LSTM.
+"""The cost model's regressors in PyTorch: the paper's three families and
+the transformer beyond it.
 
-The deployed model (paper Figs 5/6): token embedding (PAD id 0 masked),
-N stacked "same" Conv1D + ReLU, MaxPool1D over every sequence position,
-the hidden FC stack, then the heads. The paper's middle model is a
-masked LSTM whose final hidden state feeds the heads. Two head layouts,
-as in the reference:
+1. FC bag-of-tokens — the masked mean of the embeddings, then the FC
+   stack (the paper's worst RMSE).
+2. LSTM — a masked recurrence whose final hidden state feeds the heads
+   (the middle).
+3. Conv1D+MaxPool+FC, the deployed model (paper Figs 5/6): token
+   embedding (PAD id 0 masked), N stacked "same" Conv1D + ReLU,
+   MaxPool1D over every sequence position, the hidden FC stack, then the
+   heads (the best).
+4. Transformer (the paper's future work #1): learned positions, 2
+   pre-LayerNorm blocks of 4-head attention with an additive key mask
+   and a tanh-GELU MLP, then a masked mean-pool.
 
-* **single-head**: the last layer (``fc[-1]`` for the conv model,
-  ``head`` for the LSTM) is a ``(F, 1)`` scalar head and ``*_apply``
-  returns a ``(B,)`` tensor;
+Every family is split into ``*_encode(params, ids) -> features`` and
+the heads. Two head layouts, as in the reference:
+
+* **single-head**: the last layer (``fc[-1]`` for the FC and conv
+  models, ``head`` for the LSTM and the transformer) is a ``(F, 1)``
+  scalar head and ``*_apply`` returns a ``(B,)`` tensor;
 * **multi-head**: ``params["heads"]`` maps each target to a ``(F, 1)``
   linear head over the shared features and ``*_apply`` returns
   ``{target: (B,)}``.
 
 Layouts follow the reference at every public function: activations are
 ``(B, S, C)``, conv weights ``(fs, Cin, Cout)`` and LSTM weights
-``(in, 4H)`` with the gates in i, f, g, o order. The FC and transformer
-families are not ported yet (:func:`get_model` says so).
+``(in, 4H)`` with the gates in i, f, g, o order. Masks, the attention's key
+bias and the LSTM's initial state follow the embedding's dtype, so bf16
+params run a bf16 network end to end, as in the reference.
 """
 from __future__ import annotations
 
@@ -25,10 +35,11 @@ import contextlib
 import threading
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.params import conv_init, lstm_init
+from repro_torch.params import conv_init, fc_init, lstm_init, xformer_init
 
 # Canonical multi-target head set (every analyzer target, in analyzer order).
 DEFAULT_HEADS: Tuple[str, ...] = (
@@ -64,12 +75,34 @@ def fc_stack(p, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def fc_finish(p, x: torch.Tensor):
-    """Pooled features -> fc_stack -> head outputs, for either layout."""
-    feats = fc_stack(p, x)
+def _finish(p, feats: torch.Tensor, single_head: Dict[str, Any]):
+    """Shared features -> the multi-head dict, or the one scalar head."""
     if "heads" in p:
         return apply_heads(p["heads"], feats)
-    return scalar_head(p["fc"][-1], feats)
+    return scalar_head(single_head, feats)
+
+
+def fc_finish(p, x: torch.Tensor):
+    """Pooled features -> fc_stack -> head outputs, for either layout."""
+    return _finish(p, fc_stack(p, x), p["fc"][-1])
+
+
+def _masked_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Mean of ``x`` (B, S, C) over the positions where ``m`` (B, S) is 1;
+    a row with none gives zeros (the count is floored at 1)."""
+    return (x * m[..., None]).sum(1) / torch.clamp(
+        m.sum(1, keepdim=True), min=1.0)
+
+
+def fc_encode(p, ids: torch.Tensor) -> torch.Tensor:
+    """Bag-of-tokens pooling + the hidden FC stack -> shared features.
+    The mask is in the embedding's dtype, so bf16 params pool in bf16."""
+    emb = p["emb"]
+    return fc_stack(p, _masked_mean(emb[ids], _mask(ids).to(emb.dtype)))
+
+
+def fc_apply(p, ids: torch.Tensor):
+    return _finish(p, fc_encode(p, ids), p["fc"][-1])
 
 
 _PRECISION_LOCK = threading.Lock()
@@ -204,25 +237,78 @@ def lstm_encode(p, ids: torch.Tensor) -> torch.Tensor:
 
 
 def lstm_apply(p, ids: torch.Tensor):
-    h = lstm_encode(p, ids)
-    if "heads" in p:
-        return apply_heads(p["heads"], h)
-    return scalar_head(p["head"], h)
+    return _finish(p, lstm_encode(p, ids), p.get("head"))
 
 
-MODELS = {"conv1d": (conv_init, conv_apply),
-          "lstm": (lstm_init, lstm_apply)}
+# The transformer's attention head count, fixed as in the reference.
+XFORMER_HEADS = 4
 
-# Families of the reference that later slices port.
-NOT_PORTED = ("fc", "xformer")
+
+def _ln(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """LayerNorm without a bias: the biased variance, eps 1e-5, written
+    out so that bf16 stays bf16 at every step."""
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-5) * g
+
+
+def xformer_encode(p, ids: torch.Tensor) -> torch.Tensor:
+    """Masked transformer stack -> mean-pooled features. S <= the
+    ``pos`` table's length (cfg.max_seq).
+
+    PAD keys get an additive bias of -1e30 in the embedding's dtype
+    (bf16 represents it) after the scores are divided by sqrt(dh). A row
+    of PAD only thus attends uniformly and stays finite, where a boolean
+    mask (or ``scaled_dot_product_attention``) may give NaN; its pooled
+    features are 0. The attention is plain matmuls and ``softmax``."""
+    emb = p["emb"]
+    m = _mask(ids).to(emb.dtype)
+    B, S = ids.shape
+    d = emb.shape[1]
+    h = emb[ids] + p["pos"][:S]
+    H = XFORMER_HEADS
+    dh = d // H
+    neg = ((1.0 - m)[:, None, None, :] * -1e30).to(m.dtype)
+    scale = float(np.sqrt(dh))          # a Python float keeps bf16 bf16
+
+    def split_heads(t):
+        return t.reshape(B, S, H, dh).transpose(1, 2)
+    for blk in p["blocks"]:
+        x = _ln(h, blk["ln1"])
+        q, k, v = (x @ blk["wqkv"]).chunk(3, dim=-1)
+        q, k, v = split_heads(q), split_heads(k), split_heads(v)
+        a = q @ k.transpose(-1, -2) / scale + neg
+        o = (torch.softmax(a, dim=-1) @ v).transpose(1, 2)
+        h = h + o.reshape(B, S, d) @ blk["wo"]
+        x = _ln(h, blk["ln2"])
+        h = h + F.gelu(x @ blk["w1"], approximate="tanh") @ blk["w2"]
+    return _masked_mean(h, m)
+
+
+def xformer_apply(p, ids: torch.Tensor):
+    return _finish(p, xformer_encode(p, ids), p.get("head"))
+
+
+# kind -> (init, apply). The reference's third element, the sharding
+# axes, belongs to the multi-card trainer, which is not ported.
+MODELS = {"fc": (fc_init, fc_apply),
+          "lstm": (lstm_init, lstm_apply),
+          "conv1d": (conv_init, conv_apply),
+          "xformer": (xformer_init, xformer_apply)}
+
+ENCODERS = {"fc": fc_encode,
+            "lstm": lstm_encode,
+            "conv1d": conv_encode,
+            "xformer": xformer_encode}
 
 
 def get_model(kind: str):
-    if kind in NOT_PORTED:
-        raise NotImplementedError(
-            f"model kind {kind!r} is not ported yet; ported: "
-            f"{sorted(MODELS)}")
     if kind not in MODELS:
-        raise KeyError(f"unknown model {kind!r}; one of "
-                       f"{sorted(MODELS) + list(NOT_PORTED)}")
+        raise KeyError(f"unknown model {kind!r}; one of {sorted(MODELS)}")
     return MODELS[kind]
+
+
+def get_encoder(kind: str):
+    if kind not in ENCODERS:
+        raise KeyError(f"unknown model {kind!r}; one of {sorted(ENCODERS)}")
+    return ENCODERS[kind]

@@ -254,6 +254,9 @@ class CostModelService:
         # on the card with use_kernel, one kernel launch each, which the
         # replicated tier's stats hold against the kernels' counters
         self.forward_batches = 0
+        # shapes run by warmup(): on the card with use_kernel, one
+        # launch each, before any forward batch
+        self.warmup_shapes = 0
         # wall-clock split of the serving hot path, for benchmark
         # attribution (tokenize/encode/hash vs forward)
         self._phase_s = {"hash_s": 0.0, "encode_s": 0.0, "forward_s": 0.0}
@@ -765,6 +768,8 @@ class CostModelService:
                 n += 1
         if self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
+        with self._cache_lock:
+            self.warmup_shapes += n
         return n
 
     def predict_all(self, graphs: Sequence[Graph]) -> Dict[str, np.ndarray]:

@@ -19,8 +19,8 @@ Three parts, all dependency-free (stdlib + the repo itself):
 
 Egress lives in :mod:`repro_torch.obs.export` (periodic JSONL stream +
 opt-in Prometheus text endpoint). The stream has the reference
-package's format (``docs/observability.md``); this package has no CLI
-over it yet.
+package's format (``docs/observability.md``); ``python -m
+repro_torch.launch.obs report <jsonl>`` reads it.
 """
 from repro_torch.obs.drift import Alarm, DriftMonitor
 from repro_torch.obs.export import (JsonlExporter, PromExporter,

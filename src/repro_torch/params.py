@@ -9,7 +9,13 @@ A parameter tree is a plain dict with the reference layout:
   single-head: no ``heads`` key, ``fc[-1]`` is the scalar head;
 * the LSTM instead of ``convs``/``fc``: ``wx`` ``(E, 4H)``, ``wh``
   ``(H, 4H)``, ``b`` ``(4H,)``, and ``heads[t]`` or, single-head, one
-  ``head`` ``{"w": (H, 1), "b": (1,)}``.
+  ``head`` ``{"w": (H, 1), "b": (1,)}``;
+* the FC (bag-of-tokens) model: no ``convs``; ``fc[0]`` is
+  ``(E, fc_dims[0])``, and as in the conv model the single-head layout
+  adds a ``(F, 1)`` ``fc[-1]`` in place of ``heads``;
+* the transformer: ``pos`` ``(max_seq, E)``; ``blocks[i]`` ``{"wqkv":
+  (E, 3E), "wo": (E, E), "ln1": (E,), "ln2": (E,), "w1": (E, 4E),
+  "w2": (4E, E)}``; and ``heads[t]`` ``(E, 1)`` or one ``head``.
 
 Dict keys keep their names through every conversion, so a consumer maps
 head outputs by name and never by position (a tree that went through a
@@ -121,9 +127,31 @@ def _normal(shape, scale: float, generator: torch.Generator):
     return torch.randn(shape, generator=generator) * scale
 
 
-def _fan_in_scale(shape) -> float:
+def _weight(shape, generator: torch.Generator):
+    """N(0, 1/fan_in), the reference's default scale."""
     fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
-    return 1.0 / float(np.sqrt(fan_in))
+    return _normal(shape, 1.0 / float(np.sqrt(fan_in)), generator)
+
+
+def _linear(shape, generator: torch.Generator):
+    return {"w": _weight(shape, generator), "b": torch.zeros((shape[1],))}
+
+
+def _embedding(cfg, generator: torch.Generator):
+    return _normal((cfg.vocab_size, cfg.embed_dim), 0.02, generator)
+
+
+def _fc_layers(in_dim: int, cfg, heads, generator: torch.Generator):
+    """``fc`` (the hidden FC stack, plus the (F, 1) scalar head in the
+    single-head layout) and, multi-head, ``heads``, over ``in_dim``
+    pooled features."""
+    dims = [in_dim, *cfg.fc_dims] + ([] if heads else [1])
+    p = {"fc": [_linear((dims[i], dims[i + 1]), generator)
+                for i in range(len(dims) - 1)]}
+    if heads:
+        p["heads"] = {t: _linear((cfg.fc_dims[-1], 1), generator)
+                      for t in heads}
+    return p
 
 
 def conv_init(cfg, heads: Optional[Sequence[str]] = None, *,
@@ -133,8 +161,7 @@ def conv_init(cfg, heads: Optional[Sequence[str]] = None, *,
     N(0, 1/fan_in); zero biases. float32, on the CPU (the service places
     them). The random bits differ from the reference's generator, so
     parity tests carry the reference's params across instead."""
-    p = {"emb": _normal((cfg.vocab_size, cfg.embed_dim), 0.02, generator),
-         "convs": []}
+    p = {"emb": _embedding(cfg, generator), "convs": []}
     c_in = cfg.embed_dim
     for fs, c_out in zip(cfg.conv_filters, cfg.conv_channels):
         p["convs"].append({
@@ -142,18 +169,7 @@ def conv_init(cfg, heads: Optional[Sequence[str]] = None, *,
                          generator),
             "b": torch.zeros((c_out,))})
         c_in = c_out
-    dims = [c_in, *cfg.fc_dims] + ([] if heads else [1])
-    p["fc"] = []
-    for i in range(len(dims) - 1):
-        shape = (dims[i], dims[i + 1])
-        p["fc"].append({"w": _normal(shape, _fan_in_scale(shape), generator),
-                        "b": torch.zeros((dims[i + 1],))})
-    if heads:
-        f = cfg.fc_dims[-1]
-        p["heads"] = {t: {"w": _normal((f, 1), _fan_in_scale((f, 1)),
-                                       generator),
-                          "b": torch.zeros((1,))} for t in heads}
-    return p
+    return {**p, **_fc_layers(c_in, cfg, heads, generator)}
 
 
 def lstm_init(cfg, heads: Optional[Sequence[str]] = None, *,
@@ -164,16 +180,47 @@ def lstm_init(cfg, heads: Optional[Sequence[str]] = None, *,
     ``b`` (4H,); per-target heads (H, 1) in ``heads``, or one ``head`` in
     the single-head layout. float32, on the CPU."""
     h = cfg.lstm_hidden
-
-    def weight(shape):
-        return _normal(shape, _fan_in_scale(shape), generator)
-    p = {"emb": _normal((cfg.vocab_size, cfg.embed_dim), 0.02, generator),
-         "wx": weight((cfg.embed_dim, 4 * h)),
-         "wh": weight((h, 4 * h)),
+    p = {"emb": _embedding(cfg, generator),
+         "wx": _weight((cfg.embed_dim, 4 * h), generator),
+         "wh": _weight((h, 4 * h), generator),
          "b": torch.zeros((4 * h,))}
     if heads:
-        p["heads"] = {t: {"w": weight((h, 1)), "b": torch.zeros((1,))}
-                      for t in heads}
+        p["heads"] = {t: _linear((h, 1), generator) for t in heads}
     else:
-        p["head"] = {"w": weight((h, 1)), "b": torch.zeros((1,))}
+        p["head"] = _linear((h, 1), generator)
+    return p
+
+
+def fc_init(cfg, heads: Optional[Sequence[str]] = None, *,
+            generator: torch.Generator):
+    """FC (bag-of-tokens) params with the reference's shapes and scales:
+    embedding N(0, 0.02); the conv model's FC stack and heads over the
+    pooled embedding, so ``fc[0]`` is ``(E, fc_dims[0])``, weights
+    N(0, 1/fan_in), zero biases. float32, on the CPU."""
+    return {"emb": _embedding(cfg, generator),
+            **_fc_layers(cfg.embed_dim, cfg, heads, generator)}
+
+
+def xformer_init(cfg, heads: Optional[Sequence[str]] = None, *,
+                 generator: torch.Generator):
+    """Transformer params with the reference's shapes and scales:
+    embedding and the learned position table ``pos`` (max_seq, E)
+    N(0, 0.02); 2 blocks, each ``wqkv`` (E, 3E), ``wo`` (E, E), ``w1``
+    (E, 4E) and ``w2`` (4E, E) N(0, 1/fan_in) and LayerNorm gains
+    ``ln1`` and ``ln2`` ones (no bias); heads (E, 1) N(0, 1/E) with zero
+    bias, or one ``head``. The attention's 4 heads split E; they have no
+    params of their own. float32, on the CPU."""
+    d = cfg.embed_dim
+    p = {"emb": _embedding(cfg, generator),
+         "pos": _normal((cfg.max_seq, d), 0.02, generator),
+         "blocks": [{"wqkv": _weight((d, 3 * d), generator),
+                     "wo": _weight((d, d), generator),
+                     "ln1": torch.ones((d,)), "ln2": torch.ones((d,)),
+                     "w1": _weight((d, 4 * d), generator),
+                     "w2": _weight((4 * d, d), generator)}
+                    for _ in range(2)]}
+    if heads:
+        p["heads"] = {t: _linear((d, 1), generator) for t in heads}
+    else:
+        p["head"] = _linear((d, 1), generator)
     return p

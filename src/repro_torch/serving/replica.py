@@ -383,7 +383,8 @@ def replica_main(replica_id: int, spec: T.ServiceSpec, inbox,
                        "device": device,
                        "kernel_launches": KOPS.launch_counts(spec.kind),
                        "nvcc_runs": len(_build.compiled),
-                       "forward_batches": svc.forward_batches}
+                       "forward_batches": svc.forward_batches,
+                       "warmup_shapes": svc.warmup_shapes}
             if tracer is not None:
                 payload["obs"] = {
                     "spans_buffered": len(tracer.recorder),

@@ -12,8 +12,10 @@ The training checks need deterministic algorithms, and with them cuBLAS
 needs ``CUBLAS_WORKSPACE_CONFIG`` before its first call; this module
 sets it when it is imported.
 """
+import importlib.util
 import os
 import threading
+from pathlib import Path
 from unittest import mock
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -99,12 +101,14 @@ def _columns(out, heads):
 @pytest.mark.parametrize("dtype", [None, torch.bfloat16])
 @pytest.mark.parametrize("heads", [None, DEFAULT_HEADS])
 @pytest.mark.parametrize("cfg_name,S", [("COSTMODEL_BASE", 256),
+                                        ("COSTMODEL_BASE", 160),
                                         ("COSTMODEL_BASE", 32),
                                         ("COSTMODEL_OPERAND", 1024)])
 def test_kernel_matches_plain(cuda, cfg_name, S, heads, dtype):
     """Both filter mixes (OPERAND's S=1024 needs several tiles with
-    halos), both head layouts; bf16 params against the plain version on
-    the same params widened to f32."""
+    halos; S=160, the serve CLI's longest bucket, ends in a short tile),
+    both head layouts; bf16 params against the plain version on the
+    same params widened to f32."""
     cfg = getattr(CFGS, cfg_name)
     pt = card_params(cfg, heads, cuda, dtype)
     ids = torch.from_numpy(ragged_ids(np.random.default_rng(S), 5, S,
@@ -786,3 +790,46 @@ def test_start_replicas_builds_kernels_before_spawning(cuda, tmp_path,
     assert built_at_spawn == [True, True]
     assert _build.compiled == [K.LIB]
     assert [s["nvcc_runs"] for s in stats] == [0, 0]
+
+
+# ------------------------------------------------ the FC and transformer
+def seeded_family_params(kind, cfg, heads, seed):
+    """``chip_smoke.py``'s seeded FC or transformer params: the embedding
+    x20, every bias, the position table and the LayerNorm gains drawn."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.seeded_family_params(kind, cfg, heads, seed)
+
+
+@pytest.mark.parametrize("kind", ["fc", "xformer"])
+def test_family_card_forward_matches_cpu(cuda, kind):
+    """The plain forward on the card within 2e-4 of the CPU's with
+    torch's default precision switches, both head layouts, ragged ids
+    and an all-PAD row that stays finite; bf16 params give bf16 heads."""
+    cfg = CFGS.COSTMODEL_BASE
+    apply = CM.get_model(kind)[1]
+    rng = np.random.default_rng(8)
+    torch.backends.cudnn.allow_tf32 = True        # torch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for heads in (None, DEFAULT_HEADS):
+            p = seeded_family_params(kind, cfg, heads, seed=5)
+            for S, B in ((32, 5), (256, 64)):
+                ids = ragged_ids(rng, B, S, cfg.vocab_size)
+                with torch.inference_mode():
+                    got = apply(P.from_numpy(p, cuda),
+                                torch.from_numpy(ids).to(cuda))
+                    want = apply(P.from_numpy(p, "cpu"),
+                                 torch.from_numpy(ids))
+                got = _columns(got, heads).cpu()
+                assert torch.isfinite(got).all()
+                torch.testing.assert_close(got, _columns(want, heads),
+                                           rtol=TOL, atol=TOL)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        out = apply(P.from_numpy(p, cuda, torch.bfloat16),
+                    torch.from_numpy(ids).to(cuda))
+    assert all(out[t].dtype == torch.bfloat16 for t in DEFAULT_HEADS)

@@ -18,14 +18,14 @@ from repro.optim import compress as R_COMP
 from repro_torch import params as P
 from repro_torch.checkpoint import ckpt as T_CKPT
 from repro_torch.configs.costmodel import COSTMODEL_SMALL as T_SMALL
-from repro_torch.core.models import DEFAULT_HEADS
+from repro_torch.core.models import DEFAULT_HEADS, get_model
 from repro_torch.optim import adamw as T_ADAMW
 from repro_torch.optim import compress as T_COMP
 from repro_torch.runtime import fault as T_FAULT
 
 
 def ref_params(kind, heads):
-    init = {"conv1d": RM.conv_init, "lstm": RM.lstm_init}[kind]
+    init = RM.get_model(kind)[0]
     p = init(jax.random.PRNGKey(0), R_SMALL, heads=heads) if heads \
         else init(jax.random.PRNGKey(0), R_SMALL)
     return jax.tree.map(np.asarray, p)
@@ -50,7 +50,7 @@ def ref_paths(tree):
 
 @pytest.mark.parametrize("compress", [False, True])
 @pytest.mark.parametrize("heads", [None, DEFAULT_HEADS])
-@pytest.mark.parametrize("kind", ["conv1d", "lstm"])
+@pytest.mark.parametrize("kind", ["conv1d", "lstm", "fc", "xformer"])
 def test_flatten_order_is_the_references(kind, heads, compress):
     """Paths and leaf shapes in the reference's flatten order: params
     sorted, then count, m, v, then err with compression."""
@@ -59,9 +59,10 @@ def test_flatten_order_is_the_references(kind, heads, compress):
     assert [p for p, _ in got] == ref_paths(r)
     assert [tuple(x.shape) for _, x in got] == \
         [tuple(x.shape) for x in jax.tree.leaves(r)]
-    # the port's own init inserts emb first; the files sort it after
-    # convs (conv1d) or b (lstm), as the reference's flatten does
-    init = {"conv1d": P.conv_init, "lstm": P.lstm_init}[kind]
+    # the port's own init inserts emb first; the files sort the keys,
+    # as the reference's flatten does: emb after convs (conv1d), b
+    # (lstm) and blocks (xformer), still first in fc
+    init = get_model(kind)[0]
     native = init(T_SMALL, heads,
                   generator=torch.Generator().manual_seed(0))
     assert list(native)[0] == "emb"
@@ -89,7 +90,7 @@ def test_unflatten_keeps_the_tree_and_its_key_order():
 
 
 @pytest.mark.parametrize("compress", [False, True])
-@pytest.mark.parametrize("kind", ["conv1d", "lstm"])
+@pytest.mark.parametrize("kind", ["conv1d", "lstm", "fc", "xformer"])
 def test_port_checkpoint_restores_in_reference(kind, compress, tmp_path):
     r, t = states(kind, DEFAULT_HEADS, compress)
     rng = np.random.default_rng(0)
@@ -111,7 +112,7 @@ def test_port_checkpoint_restores_in_reference(kind, compress, tmp_path):
     assert int(got[1]["count"]) == 11
 
 
-@pytest.mark.parametrize("kind", ["conv1d", "lstm"])
+@pytest.mark.parametrize("kind", ["conv1d", "lstm", "fc", "xformer"])
 def test_reference_checkpoint_restores_in_port(kind, tmp_path):
     r, t = states(kind, DEFAULT_HEADS, False)
     rng = np.random.default_rng(1)

@@ -605,3 +605,24 @@ def test_tower_wrapper_plain_path_on_cpu_counts_no_launch():
                                    [b.to(dt) for b in bs], mask)
         assert out.shape == (3, 8) and out.dtype == dt
     assert K.conv1d_stack_fused.launches == before
+
+
+def test_every_kernel_source_ships_as_package_data():
+    """An installed copy of the package builds its kernels from the
+    files that ``pyproject.toml``'s package data lists: every file under
+    ``kernels/csrc`` (the ``.cu`` sources and the ``.cuh`` header K1 and
+    K3 include) matches one of its globs."""
+    import fnmatch
+    import tomllib
+    root = Path(__file__).resolve().parents[1]
+    cfg = tomllib.loads((root / "pyproject.toml").read_text())
+    globs = cfg["tool"]["setuptools"]["package-data"]["repro_torch"]
+    pkg = root / "src" / "repro_torch"
+    files = [p.relative_to(pkg).as_posix()
+             for p in (pkg / "kernels" / "csrc").rglob("*") if p.is_file()]
+    assert any(f.endswith(".cuh") for f in files)
+    for f in files:
+        assert any(fnmatch.fnmatch(f, g) for g in globs), f
+    # the build compiles csrc/<name>.cu and hashes csrc/*.cuh
+    for p in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
+        assert p.relative_to(pkg).as_posix() in files

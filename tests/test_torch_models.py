@@ -163,16 +163,18 @@ def test_bf16_tower_runs_and_stays_close():
                                    rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("kind", ["fc", "lstm", "xformer"])
+@pytest.mark.parametrize("kind", ["conv1d", "fc", "lstm", "xformer"])
 def test_unported_families_say_so(kind):
-    """fc and xformer are not ported and say so; lstm is now ported and
-    returns the reference's (init, apply) pair."""
-    if kind in TM.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TM.get_model(kind)
-    else:
-        assert TM.get_model(kind) == (P.lstm_init, TM.lstm_apply)
-    with pytest.raises(KeyError):
+    """Every family is ported now, so none says it is not: get_model
+    returns each family's (init, apply) pair, and an unknown kind is
+    still a KeyError naming the four."""
+    want = {"conv1d": (P.conv_init, TM.conv_apply),
+            "fc": (P.fc_init, TM.fc_apply),
+            "lstm": (P.lstm_init, TM.lstm_apply),
+            "xformer": (P.xformer_init, TM.xformer_apply)}
+    assert TM.get_model(kind) == want[kind]
+    assert not hasattr(TM, "NOT_PORTED")
+    with pytest.raises(KeyError, match="xformer"):
         TM.get_model("bogus")
 
 

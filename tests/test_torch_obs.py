@@ -7,7 +7,8 @@ reconstruct complete span trees across processes, and the server's
 registry gives the reference's Prometheus text and JSONL exactly, and
 every field the registry adapters read exists in the port's server,
 service, router, shared cache and supervisor. The reference's CLI case
-waits for a port of ``launch/obs.py``."""
+runs against the port's ``launch/obs.py``, whose report reads the same
+JSONL to the same text as the reference's."""
 import json
 import time
 
@@ -799,3 +800,32 @@ def test_arrival_ewma_clamps_idle_gaps():
     before = s._arrival_ewma_us
     s._note_arrival_locked(60.0001)
     assert s._arrival_ewma_us < before
+
+
+# ----------------------------------------------------------- obs CLI
+def test_obs_cli_report_reconstructs_jsonl(tmp_path, capsys):
+    """The reference's CLI case against the port's ``launch/obs.py``;
+    then the reference's CLI reports the same JSONL to the same text."""
+    from repro.launch import obs as R_OBS
+    from repro_torch.launch import obs as OBS
+    tr = Tracer(sample_every=1, proc="cli")
+    ctx = tr.sample()
+    root = tr.start("client.predict_all", ctx)
+    with tr.span("router.fetch", root.ctx):
+        time.sleep(0.001)
+    tr.end(root)
+    reg = MetricsRegistry()
+    reg.gauge("drift.oov_rate").set(0.0)
+    path = str(tmp_path / "t.jsonl")
+    JsonlExporter(path, reg, tracer=tr, interval_s=60.0).tick()
+    spans, metrics = OBS.read_records(path)
+    assert len(spans) == 2 and len(metrics) == 1
+    rows = OBS.waterfall(spans)
+    assert {r[0] for r in rows} == {"client.predict_all",
+                                    "router.fetch"}
+    rc = OBS.main(["report", path])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "complete" in out and "client.predict_all" in out
+    assert R_OBS.main(["report", path]) == 0
+    assert capsys.readouterr().out == out

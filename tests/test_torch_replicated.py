@@ -203,7 +203,8 @@ def test_featurizer_never_forwards(world, tier):
 def test_replica_stats_report_device_and_work(world, tier):
     """Each replica's stats name its device and report its kind's kernel
     launch counters (0 on the CPU, where the wrappers run their plain
-    versions) and its forward batches; no replica ran nvcc."""
+    versions), its forward batches and its warm-up shapes; no replica
+    ran nvcc."""
     client = ReplicaClient(tier.client_handle(2), local_cache=False)
     client.predict_all(world["graphs"])
     stats = [s for s in client.replica_stats() if s]
@@ -212,6 +213,8 @@ def test_replica_stats_report_device_and_work(world, tier):
         assert s["device"] == {"type": "cpu", "name": None}
         assert s["kernel_launches"] == {"conv_forward_fused": 0}
         assert s["nvcc_runs"] == 0
+        assert s["warmup_shapes"] == \
+            len(SVC_KW["buckets"]) * len(SVC_KW["batch_ladder"])
     assert sum(s["forward_batches"] for s in stats) >= 1
     assert sum(s["server"]["batches"] for s in stats) == \
         sum(s["forward_batches"] for s in stats)

@@ -162,7 +162,9 @@ def test_dispatch_checks_id_range_on_host(world, bad):
 
 def test_warmup_runs_every_shape(world):
     svc = world["make"](use_kernel=True)
-    assert svc.warmup() == len(svc.buckets) * len(svc.batch_ladder)
+    n = svc.warmup()
+    assert n == len(svc.buckets) * len(svc.batch_ladder)
+    assert svc.warmup_shapes == n and svc.forward_batches == 0
 
 
 def test_server_threads_answer_like_direct(world):

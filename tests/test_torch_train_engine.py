@@ -1,6 +1,7 @@
 """The port's TrainEngine on its own, case by case as the reference's
-``tests/test_train_engine.py``, with the LSTM where the reference runs
-its FC family: bucketed (batch_max) training reaches the eval metrics of
+``tests/test_train_engine.py``, with the reference's FC family and the
+LSTM (and, for the full substrate and the stats, the transformer) where
+the reference runs FC: bucketed (batch_max) training reaches the eval metrics of
 max_seq padding; the id storage layout does not change training;
 kill-and-resume reproduces the uninterrupted run; the full substrate
 (multi-head, int8 compression, checkpoints) runs through the one loop;
@@ -13,6 +14,8 @@ gradient (~1e-9), which AdamW amplifies over 40 steps (~2e-5). The
 checks that two runs are equal therefore run under
 ``torch.use_deterministic_algorithms(True)``, as the card's does.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -27,6 +30,14 @@ from repro_torch.data import pipeline as PIPE
 from repro_torch.ir import dataset as DS
 
 CPU = dict(device="cpu")
+
+
+def cfg_for(kind):
+    """COSTMODEL_SMALL, with the transformer's position table as long as
+    the dataset's 96 tokens."""
+    if kind == "xformer":
+        return dataclasses.replace(COSTMODEL_SMALL, max_seq=96)
+    return COSTMODEL_SMALL
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -66,7 +77,7 @@ def _param_diff(a, b) -> float:
 
 
 # -------------------------------------------------------------- bucketing
-@pytest.mark.parametrize("kind", ["conv1d", "lstm"])
+@pytest.mark.parametrize("kind", ["conv1d", "lstm", "fc"])
 def test_bucketed_training_parity(kind, split):
     """batch_max bucketing reaches eval metrics within tolerance of
     max_seq padding on the same seed, for conv1d (bucket widths include
@@ -74,7 +85,7 @@ def test_bucketed_training_parity(kind, split):
     reference: per-step gradients agree to rounding, which AdamW
     amplifies into small param drift, so eval metrics are compared."""
     tr, te = split
-    steps = 120 if kind == "conv1d" else 60
+    steps = 60 if kind == "lstm" else 120
     res_b = TR.TrainEngine(kind, COSTMODEL_SMALL, "register_pressure",
                            steps=steps, batch_size=64, seed=0,
                            bucketed=True, **CPU).fit(tr)
@@ -176,18 +187,15 @@ def test_engine_kill_and_resume_reproduces_run(kind, split, tmp_path,
                                    rtol=1e-6, atol=1e-7)
 
 
-def test_engine_multihead_with_compression_and_ckpt(split, tmp_path):
-    """The full substrate in one run: multi-head joint training, int8
-    error-feedback grad compression, checkpointing — through the one
-    engine loop."""
+def _multihead_with_compression_and_ckpt(kind, split, tmp_path):
     tr, te = split
     heads = ("register_pressure", "latency_us")
     d = tmp_path / "ck"
-    res = TR.TrainEngine("lstm", COSTMODEL_SMALL, heads, steps=60,
+    res = TR.TrainEngine(kind, cfg_for(kind), heads, steps=60,
                          batch_size=64, seed=0, compress_grads=True,
                          ckpt_dir=str(d), **CPU).fit(tr)
     assert res.heads == heads
-    m = TR.evaluate("lstm", COSTMODEL_SMALL, res, te)
+    m = TR.evaluate(kind, cfg_for(kind), res, te)
     assert set(m) == set(heads)
     for t in heads:
         assert np.isfinite(m[t]["rmse_norm"])
@@ -198,10 +206,25 @@ def test_engine_multihead_with_compression_and_ckpt(split, tmp_path):
     assert len(list(step_dir.glob("leaf_*.npy"))) == 4 * n_params + 1
 
 
+def test_engine_multihead_with_compression_and_ckpt(split, tmp_path):
+    """The full substrate in one run: multi-head joint training, int8
+    error-feedback grad compression, checkpointing — through the one
+    engine loop."""
+    _multihead_with_compression_and_ckpt("lstm", split, tmp_path)
+
+
+@pytest.mark.parametrize("kind", ["fc", "xformer"])
+def test_engine_multihead_with_compression_and_ckpt_families(
+        kind, split, tmp_path):
+    """The same run for the reference's FC family (the reference's own
+    case) and the transformer."""
+    _multihead_with_compression_and_ckpt(kind, split, tmp_path)
+
+
 # ----------------------------------------------------------------- results
-def test_train_result_stats_populated(split):
+def _stats_populated(kind, split):
     tr, _ = split
-    res = TR.train_model("lstm", COSTMODEL_SMALL, tr, "latency_us",
+    res = TR.train_model(kind, cfg_for(kind), tr, "latency_us",
                          steps=30, batch_size=64, log_every=10, **CPU)
     for k in ["final_loss", "steps", "wall_time_s", "steps_per_s"]:
         assert k in res.stats, res.stats
@@ -210,6 +233,15 @@ def test_train_result_stats_populated(split):
     assert np.isfinite(res.stats["final_loss"])
     assert res.history and res.history[-1][0] == 30
     assert [s for s, _ in res.history] == [10, 20, 30]
+
+
+def test_train_result_stats_populated(split):
+    _stats_populated("lstm", split)
+
+
+@pytest.mark.parametrize("kind", ["fc", "xformer"])
+def test_train_result_stats_populated_families(kind, split):
+    _stats_populated(kind, split)
 
 
 # ------------------------------------------------------------ the port's
@@ -243,8 +275,12 @@ def test_engine_defaults_to_the_card_and_refuses_a_mesh():
     with pytest.raises(NotImplementedError, match="M9"):
         TR.TrainEngine("conv1d", COSTMODEL_SMALL, "latency_us",
                        mesh_data=2, **CPU)
-    with pytest.raises(NotImplementedError):
-        TR.TrainEngine("fc", COSTMODEL_SMALL, "latency_us", **CPU)
+    # every family trains; an unknown kind names the four
+    for kind in ("fc", "xformer"):
+        eng = TR.TrainEngine(kind, COSTMODEL_SMALL, "latency_us", **CPU)
+        assert eng.apply_fn is TR.CM.get_model(kind)[1]
+    with pytest.raises(KeyError, match="xformer"):
+        TR.TrainEngine("bogus", COSTMODEL_SMALL, "latency_us", **CPU)
 
 
 def test_warmup_and_schedule_follow_the_steps(split):

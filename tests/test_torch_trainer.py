@@ -4,11 +4,13 @@ JAX's random bits cannot be reproduced, so both engines start from the
 reference's initial params (the port's carried across with
 ``params.from_numpy``, each engine's ``init_fn`` replaced) and read the
 same Loader stream from identical copies of the dataset. Held against
-each other: loss curves and final params for conv1d and lstm, single-
+each other: loss curves and final params for every family, single-
 and multi-head, with and without int8 compression; and checkpoints
 across the two packages in both directions, each resumed run landing on
 the uninterrupted reference run.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -71,23 +73,34 @@ def splits():
     return r_tr, t_tr
 
 
+def configs(kind):
+    """(reference, port) config: COSTMODEL_SMALL, with the transformer's
+    position table as long as the dataset's 96 tokens."""
+    if kind != "xformer":
+        return R_SMALL, T_SMALL
+    return (dataclasses.replace(R_SMALL, max_seq=DS_KW["max_seq"]),
+            dataclasses.replace(T_SMALL, max_seq=DS_KW["max_seq"]))
+
+
 def ref_init(kind, heads):
     init = RM.get_model(kind)[0]
     h = None if isinstance(heads, str) else tuple(heads)
     key = jax.random.PRNGKey(0)
-    return jax.tree.map(np.asarray, init(key, R_SMALL, heads=h) if h
-                        else init(key, R_SMALL))
+    cfg = configs(kind)[0]
+    return jax.tree.map(np.asarray, init(key, cfg, heads=h) if h
+                        else init(key, cfg))
 
 
 def ref_engine(kind, heads, p0, **kw):
-    eng = RT.TrainEngine(kind, R_SMALL, heads, **kw)
+    eng = RT.TrainEngine(kind, configs(kind)[0], heads, **kw)
     eng.init_fn = lambda key, cfg, heads=None: jax.tree.map(
         jax.numpy.asarray, p0)
     return eng
 
 
 def port_engine(kind, heads, p0, **kw):
-    eng = TT.TrainEngine(kind, T_SMALL, heads, device="cpu", **kw)
+    eng = TT.TrainEngine(kind, configs(kind)[1], heads, device="cpu",
+                         **kw)
     eng.init_fn = lambda cfg, heads=None, *, generator: P.from_numpy(
         p0, "cpu")
     return eng
@@ -146,13 +159,18 @@ CASES = [("conv1d", "latency_us", False),
          ("conv1d", DEFAULT_HEADS, False),
          ("lstm", "latency_us", False),
          ("lstm", DEFAULT_HEADS, False),
-         ("conv1d", DEFAULT_HEADS, True)]
+         ("conv1d", DEFAULT_HEADS, True),
+         ("fc", "latency_us", False),
+         ("fc", DEFAULT_HEADS, False),
+         ("xformer", "latency_us", False),
+         ("xformer", DEFAULT_HEADS, False)]
 
 
 @pytest.mark.parametrize(
     "kind,heads,compress", CASES,
     ids=["conv1d-single", "conv1d-multi", "lstm-single", "lstm-multi",
-         "conv1d-multi-compressed"])
+         "conv1d-multi-compressed", "fc-single", "fc-multi",
+         "xformer-single", "xformer-multi"])
 def test_training_matches_reference(kind, heads, compress, splits):
     r_tr, t_tr = splits
     p0 = ref_init(kind, heads)

@@ -27,9 +27,12 @@ Phases, each printing JSON lines:
    The ladder check moves each row one position in its batch, so B=1
    holds a real row. The serve and optimize CLIs' own widths (vocab
    4096, S in {64, 128, 160}: the buckets of their max_seq 160, whose
-   last tile is short). Times the kernel and the plain version in turns
-   with CUDA events at B in {64, 4, 1} (``ms``, as since K1 was ported),
-   beside them the card's time alone and the host's (``device_ms``,
+   last tile is short), and the ingest CLI's (``ingest_f32``: vocab
+   2048, embedding 32, 3 layers of fs=2 and 32 channels, FC 64, at its
+   buckets S in {32, 64, 128, 192}); each case prints the tile plan it
+   ran. Times the kernel and the plain version in turns with CUDA
+   events at B in {64, 4, 1} (``ms``, as since K1 was ported), beside
+   them the card's time alone and the host's (``device_ms``,
    ``host_ms``), prints each B's tile plan and the kernel's ptxas
    registers and spills, and reports how far a TF32 plain version
    lands.
@@ -167,10 +170,26 @@ Phases, each printing JSON lines:
    K1 launches equal to their warm-up shapes and forward batches, then
    ``launch.obs report`` on its JSONL exits 0 with every trace
    complete.
+13. ``ingest`` — the port's StableHLO lowering and the ingest CLI on
+   the card. ``ir.stablehlo.lower_arch_corpus`` over all ten
+   architectures, timed: 43 texts, each parsed by the front door into
+   a graph with ops. ``launch.ingest --arch all --fuzz 200 --kernel``
+   called as ``main(argv)``: 43 predictions, ``unk_rate`` 0 on every
+   one, no uncaught exception over the 200 fuzzed texts, K1's launches
+   equal to its card service's warm-up shapes and forward batches, and
+   every row that service served (with a ragged batch of each bucket)
+   within 2e-4 of a plain card service on the same params. The card
+   against the CPU, within 1e-3 relative for every arch text: the same
+   call with ``--train-steps 0`` with ``--kernel`` and with ``--device
+   cpu`` (the plain path; both at the seeded untrained params), and the
+   card-trained service rebuilt on the CPU's plain path (two trainings
+   are two models: AdamW amplifies the devices' rounding). Reports the lowering's seconds, texts a
+   second through ``predict_text`` (a fresh K1 service, cold LRU), K1's
+   launches and the phase's seconds.
 
 Then one ``{"kernels": [...]}`` line (K1's and K2's ``launches`` add
-the replicated phase's, counted in the replicas, and K1's the cli
-phase's, under ``launches_by_path``), and the last line
+the replicated phase's, counted in the replicas, and K1's the cli and
+ingest phases', under ``launches_by_path``), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is not 0 and no result line is printed; so does a machine without
 a CUDA card, or a directory without the repository's ``src/``.
@@ -443,6 +462,11 @@ def phase_kernels() -> dict:
     CLI_CFG = CostModelConfig(name="cli", vocab_size=4096, max_seq=160,
                               embed_dim=64, conv_channels=(64,) * 6,
                               fc_dims=(256, 64))
+    # launch.ingest's: embedding 32, 3 layers of fs=2 and 32 channels
+    # (conv_channels zips the six default filters down to three), FC 64
+    INGEST_CFG = CostModelConfig(name="ingest", vocab_size=2048,
+                                 max_seq=192, embed_dim=32,
+                                 conv_channels=(32,) * 3, fc_dims=(64,))
 
     def params_for(cfg, heads, dtype=None):
         return P.from_numpy(seeded_params(cfg, heads, 1), dev, dtype)
@@ -465,7 +489,11 @@ def phase_kernels() -> dict:
         check(err <= TOL, f"{label} {cfg.name} S={S} B={B} err {err}")
         max_err = max(max_err, err)
         return {"case": label, "config": cfg.name, "heads": len(heads or
-                (0,)), "S": S, "B": B, "max_abs_err": err}
+                (0,)), "S": S, "B": B, "max_abs_err": err,
+                "plan": K.plan(B, S, args[0].shape[1],
+                               [w.shape[0] for w in args[1]],
+                               [w.shape[2] for w in args[1]],
+                               [w.shape[1] for w in args[3]])}
 
     cases = []
     for heads in (DEFAULT_HEADS, None):
@@ -488,6 +516,12 @@ def phase_kernels() -> dict:
             for B in (1, 5, 64):
                 cases.append(compare(CLI_CFG, heads, S, B,
                                      label="cli_f32"))
+        # the ingest CLI's config at each of its buckets; 192 is no
+        # power of two, so its last tile is short
+        for S in (32, 64, 128, 192):
+            for B in (1, 5, 64):
+                cases.append(compare(INGEST_CFG, heads, S, B,
+                                     label="ingest_f32"))
         cases.append(compare(COSTMODEL_BASE, heads, 256, 64,
                              torch.bfloat16, label="base_bf16"))
         cases.append(compare(COSTMODEL_OPERAND, heads, 1024, 5,
@@ -2614,16 +2648,22 @@ def run_cli(main, argv):
         k1_services=k1)
 
 
-def served_vs_plain(svc, seed: int) -> dict:
+def served_vs_plain(svc, seed: int, texts=()) -> dict:
     """The rows a K1 card service served (its LRU, with the bucket-padded
-    ids of its ids cache), and a ragged batch of each of its buckets
-    through it, against a plain card service built from the same
-    params, vocabulary and stats on the same ids; within TOL."""
+    ids of its ids cache, and of ``texts`` it served through
+    ``predict_text``, featurized again), and a ragged batch of each of
+    its buckets through it, against a plain card service built from the
+    same params, vocabulary and stats on the same ids; within TOL."""
     import numpy as np
+    from repro_torch.ir import frontdoor as FD
     from repro_torch.serving import ServiceSpec
     plain = ServiceSpec.from_service(svc).build(use_kernel=False)
     with svc._cache_lock:
         ids_of = {k: v[0] for k, v in svc._ids_cache.items()}
+    for text in texts:
+        ent = svc.ingest_text(text)
+        if not isinstance(ent, FD.IngestError):
+            ids_of[ent.key] = ent.ids
     served = [(k, ids_of[k], row) for k, row in svc.export_cache()
               if k in ids_of]
     n_served = len(served)
@@ -2791,6 +2831,104 @@ def phase_cli(card: str) -> dict:
     return out
 
 
+# ingest phase: the ingest CLI over the port's own lowering
+INGEST_FUZZ = 200
+INGEST_RTOL = 1e-3      # denormalized predictions, card vs CPU
+
+
+def pair_rel(rows_a, rows_b) -> float:
+    """Largest relative gap between two runs' predictions of the same
+    texts; every row of both must be a prediction."""
+    from repro_torch.ir import frontdoor as FD
+    worst = 0.0
+    for (_, _, ta, a), (_, _, tb, b) in zip(rows_a, rows_b, strict=True):
+        check(ta == tb and isinstance(a, FD.TextPrediction)
+              and isinstance(b, FD.TextPrediction), f"ingest: {a}, {b}")
+        for t, v in a.predictions.items():
+            worst = max(worst, abs(b.predictions[t] - v)
+                        / max(abs(v), 1e-9))
+    return worst
+
+
+def phase_ingest(card: str) -> dict:
+    """The StableHLO lowering and the ingest CLI on the card (see the
+    module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.ir import frontdoor as FD
+    from repro_torch.ir import stablehlo as SH
+    from repro_torch.launch import ingest
+    from repro_torch.serving import ServiceSpec
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    corpus = SH.lower_arch_corpus(None)
+    lower_s = time.perf_counter() - t0
+    n_ops = [getattr(FD.ingest(t), "n_ops", 0) for _, _, t in corpus]
+    check(len(corpus) == 43 and min(n_ops) > 0,
+          f"ingest: {len(corpus)} lowered texts, n_ops {n_ops}")
+
+    args = ["--arch", "all", "--fuzz", str(INGEST_FUZZ)]
+    run = run_cli(ingest.main, [*args, "--kernel"])
+    rows, fuzz = run.out["arch_rows"], run.out["fuzz"]
+    check([t for _, _, t, _ in rows] == [t for _, _, t in corpus],
+          "ingest: the CLI lowered other texts than lower_arch_corpus")
+    check(all(isinstance(r, FD.TextPrediction) for *_, r in rows),
+          f"ingest: {[r for *_, r in rows if isinstance(r, FD.IngestError)]}")
+    unk_max = max(r.unk_rate for *_, r in rows)
+    check(unk_max == 0.0, f"ingest: unk_rate_max {unk_max}")
+    check(fuzz["inputs"] == INGEST_FUZZ and fuzz["uncaught"] == 0,
+          f"ingest fuzz: {fuzz}")
+    check(len(run.k1_services) == 1, f"ingest: {len(run.k1_services)} "
+          f"K1 services")
+    check(run.launches > 0 and run.launches == run.owed,
+          f"ingest: {run.launches} K1 launches, {run.owed} warm-up "
+          f"shapes and forward batches")
+    svc = run.k1_services[0]
+    warmup_shapes, forward_batches = svc.warmup_shapes, svc.forward_batches
+    texts = [t for _, _, t in corpus]
+    texts += FD.fuzz_corpus(texts, INGEST_FUZZ, np.random.default_rng(0))
+    vs_plain = served_vs_plain(svc, 42, texts)
+
+    # texts a second through predict_text: a fresh K1 service, cold LRU
+    fresh = ServiceSpec.from_service(svc).build()
+    fresh.warmup()
+    t0 = time.perf_counter()
+    for _, _, text in corpus:
+        check(isinstance(fresh.predict_text(text), FD.TextPrediction),
+              "ingest: a fresh K1 service's prediction")
+    torch.cuda.synchronize()
+    texts_per_s = len(corpus) / (time.perf_counter() - t0)
+
+    # the card against the CPU on one model. Two trainings are two
+    # models: AdamW steps a rounding-noise gradient either way, and two
+    # devices sum in other orders, so 150 steps on each landed 9.8e-7
+    # and 6.9e-3 apart in two runs. So the same CLI on each device with
+    # the seeded untrained params, and the card-trained service's
+    # params served by the CPU's plain path.
+    pair = [run_cli(ingest.main, [*args, "--train-steps", "0", *extra])
+            for extra in (["--kernel"], ["--device", "cpu"])]
+    cpu_svc = ServiceSpec.from_service(svc).build(device="cpu",
+                                                  use_kernel=False)
+    gaps = {"cli": pair_rel(pair[0].out["arch_rows"],
+                            pair[1].out["arch_rows"]),
+            "trained": pair_rel(rows, [(a, lyr, t, cpu_svc.predict_text(t))
+                                       for a, lyr, t, _ in rows])}
+    check(pair[0].launches == pair[0].owed, f"ingest untrained: "
+          f"{pair[0].launches} K1 launches, {pair[0].owed} owed")
+    check(max(gaps.values()) <= INGEST_RTOL, f"ingest: CPU vs card "
+          f"predictions {gaps} apart (limit {INGEST_RTOL})")
+    out = {"phase": "ingest", "texts": len(corpus), "lower_s": lower_s,
+           "texts_per_s": texts_per_s, "launches": run.launches,
+           "warmup_shapes": warmup_shapes,
+           "forward_batches": forward_batches, "fuzz": fuzz,
+           "unk_rate_max": unk_max, "vs_plain": vs_plain,
+           "cpu_vs_card_rel": gaps, "card_seconds": run.seconds,
+           "cpu_seconds": pair[1].seconds,
+           "phase_seconds": time.perf_counter() - t_phase, "card": card}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2815,6 +2953,7 @@ def main() -> int:
     replicated = phase_replicated(dev["nvidia_smi"])
     phase_families(dev["nvidia_smi"])
     cli = phase_cli(dev["nvidia_smi"])
+    ingest = phase_ingest(dev["nvidia_smi"])
     t64, t4, t1 = (kern["timings"][b] for b in (64, 4, 1))
     l64, l1 = lstm["timings"][64], lstm["timings"][1]
     w64, w1 = tower["timings"][64], tower["timings"][1]
@@ -2822,11 +2961,13 @@ def main() -> int:
         "name": "conv_forward_fused", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
         "launches": serve["launches"] + compiler["launches"]
-        + replicated["k1_launches"] + cli["launches"],
+        + replicated["k1_launches"] + cli["launches"]
+        + ingest["launches"],
         "launches_by_path": {"serve": serve["launches"],
                              "compiler": compiler["launches"],
                              "replicated": replicated["k1_launches"],
-                             "cli": cli["launches"]},
+                             "cli": cli["launches"],
+                             "ingest": ingest["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": t64["ms"], "plain_ms": t64["plain_ms"],
         "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],

@@ -7,6 +7,9 @@ repro_torch.launch.<name>`` with a ``main(argv=None)``:
   serve it through the async server or a replicated tier;
 * :mod:`~repro_torch.launch.optimize` — train or resume a model, serve
   it and beam-search rewrite sequences;
+* :mod:`~repro_torch.launch.ingest` — lower real architectures' layers
+  to StableHLO, feed them (and fuzzed or user texts) through the
+  front door, and print the cost predictions;
 * :mod:`~repro_torch.launch.obs` — read the telemetry JSONL that
   ``--obs`` runs write.
 

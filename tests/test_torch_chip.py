@@ -833,3 +833,44 @@ def test_family_card_forward_matches_cpu(cuda, kind):
         out = apply(P.from_numpy(p, cuda, torch.bfloat16),
                     torch.from_numpy(ids).to(cuda))
     assert all(out[t].dtype == torch.bfloat16 for t in DEFAULT_HEADS)
+
+
+# the ingest CLI's conv1d: embedding 32, 3 layers of 32 channels, FC 64
+INGEST_CFG = CFGS.CostModelConfig(name="ingest", vocab_size=2048,
+                                  max_seq=192, embed_dim=32,
+                                  conv_channels=(32,) * 3, fc_dims=(64,))
+
+
+@pytest.mark.parametrize("heads", [None, DEFAULT_HEADS])
+@pytest.mark.parametrize("S", [32, 64, 128, 192])
+def test_kernel_matches_plain_at_ingest_widths(cuda, S, heads):
+    """The ingest CLI's widths at each of its buckets; S=192 is no
+    power of two, so its last tile is short."""
+    pt = card_params(INGEST_CFG, heads, cuda)
+    for B in (1, 5, 64):
+        ids = torch.from_numpy(ragged_ids(np.random.default_rng(S + B), B,
+                                          S, INGEST_CFG.vocab_size)).to(cuda)
+        got = _columns(ops.conv_forward_apply(pt, ids), heads)
+        want = _columns(REF.conv_forward_ref(pt, ids), heads)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def test_ingest_cli_on_card_launches_once_a_shape_and_batch(cuda, capsys):
+    """``launch.ingest --kernel`` on the card: every arch text predicts
+    with no unk, and K1 launches once a warm-up shape and once a forward
+    batch of its service."""
+    from repro_torch.launch import ingest
+    before = K.conv_forward_fused.launches
+    out = ingest.main(["--arch", "qwen3-0.6b,granite-moe-1b-a400m",
+                       "--train-steps", "20", "--fuzz", "20", "--kernel"])
+    svc = out["service"]
+    assert svc.use_kernel and str(svc.device or "cuda").startswith("cuda")
+    assert len(out["arch_rows"]) == 9 and out["fuzz"]["uncaught"] == 0
+    assert all(isinstance(r, FD.TextPrediction) and r.unk_rate == 0.0
+               for *_, r in out["arch_rows"])
+    assert svc.warmup_shapes > 0 and svc.forward_batches > 0
+    assert K.conv_forward_fused.launches - before == \
+        svc.warmup_shapes + svc.forward_batches
+    assert "0 uncaught exceptions" in capsys.readouterr().out

@@ -1,11 +1,15 @@
 """The port's copies of the numpy-only modules (graph IR, samplers,
-analyzers, printer, augment, tokenizer, dataset) give exactly what the
-reference modules give for the same seed."""
+analyzers, printer, augment, tokenizer, dataset, the architecture
+configs) give exactly what the reference modules give for the same
+seed."""
+import dataclasses
+
 import numpy as np
 import pytest
 
 pytest.importorskip("torch")
 
+from repro import configs as R_CFG
 from repro.core import augment as R_AUG
 from repro.core import tokenizer as R_TOK
 from repro.data import pipeline as R_PIPE
@@ -13,6 +17,7 @@ from repro.ir import analyzers as R_AN
 from repro.ir import dataset as R_DS
 from repro.ir import printer as R_PR
 from repro.ir import samplers as R_SMP
+from repro_torch import configs as T_CFG
 from repro_torch.core import augment as T_AUG
 from repro_torch.core import tokenizer as T_TOK
 from repro_torch.data import pipeline as T_PIPE
@@ -99,3 +104,26 @@ def test_fit_width_identical(width):
     arr = np.arange(1, 17, dtype=np.int32).reshape(2, 8)
     np.testing.assert_array_equal(T_PIPE.fit_width(arr, width),
                                   R_PIPE.fit_width(arr, width))
+
+
+@pytest.mark.parametrize("name", sorted(R_CFG.ARCHS))
+def test_arch_configs_identical(name):
+    """Every registered architecture and its reduced widths, field for
+    field, and every (arch, shape) eligibility."""
+    ref, got = R_CFG.get_arch(name), T_CFG.get_arch(name)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(got.reduced()) == \
+        dataclasses.asdict(ref.reduced())
+    assert got.resolved_head_dim == ref.resolved_head_dim
+    for shape in sorted(R_CFG.SHAPES):
+        assert T_CFG.shape_eligible(got, T_CFG.SHAPES[shape]) == \
+            R_CFG.shape_eligible(ref, R_CFG.SHAPES[shape])
+
+
+def test_arch_registry_and_shapes_identical():
+    assert sorted(T_CFG.ARCHS) == sorted(R_CFG.ARCHS)
+    assert {k: dataclasses.asdict(v) for k, v in T_CFG.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in R_CFG.SHAPES.items()}
+    assert set(T_CFG.__all__) == set(R_CFG.__all__)
+    with pytest.raises(KeyError, match="unknown arch"):
+        T_CFG.get_arch("no-such-arch")

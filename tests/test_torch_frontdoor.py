@@ -5,7 +5,8 @@ the server's ``predict_text`` agree with the reference service built on
 the same numpy params. Then the contracts of ``tests/test_frontdoor.py``
 on the port: the error taxonomy, bytes input, the struct-key cache
 shared by text and graph, server/service parity, the fuzz gate and the
-hypothesis properties."""
+hypothesis properties, and the reference's ingest gate on the port's own
+StableHLO lowering (``repro_torch.ir.stablehlo``)."""
 from __future__ import annotations
 
 import jax
@@ -55,6 +56,7 @@ from repro_torch.core.server import CostModelServer
 from repro_torch.ir import frontdoor as FD
 from repro_torch.ir import printer as T_PR
 from repro_torch.ir import samplers as T_SMP
+from repro_torch.ir import stablehlo as T_SH
 
 CFG = CostModelConfig(name="fd-port-test", vocab_size=1024, max_seq=256,
                       embed_dim=16, conv_channels=(16,) * 2,
@@ -68,8 +70,14 @@ RTOL_DEN = 1e-3  # denormalized predictions (expm1 of a z-score)
 @pytest.fixture(scope="module")
 def corpus():
     """(arch, layer, text) rows of the reference's StableHLO lowering of
-    >= 5 real architectures (the port has no lowering of its own yet)."""
+    >= 5 real architectures: text that the port did not produce."""
     return SH.lower_arch_corpus(list(ARCHS5), seq=8)
+
+
+@pytest.fixture(scope="module")
+def port_corpus():
+    """The same rows from the port's own lowering."""
+    return T_SH.lower_arch_corpus(list(ARCHS5), seq=8)
 
 
 @pytest.fixture(scope="module")
@@ -377,6 +385,40 @@ def test_fuzz_corpus_never_raises(corpus, service):
             assert all(np.isfinite(v)
                        for v in out.predictions.values())
     assert errors < len(mutated)           # not everything degrades
+
+
+def test_gate_on_the_ports_own_lowering(corpus, port_corpus, service):
+    """The reference's ingest gate on the port's lowering: every row
+    predicts, zero IngestErrors, unk_rate_max == 0, and each text shares
+    its cache key and predictions with the reference's text of the same
+    layer."""
+    assert [(a, lyr) for a, lyr, _ in port_corpus] == \
+        [(a, lyr) for a, lyr, _ in corpus]
+    unk_max, errors = 0.0, 0
+    for (arch, layer, text), (_, _, ref_text) in zip(port_corpus, corpus):
+        out = service.predict_text(text)
+        if isinstance(out, FD.IngestError):
+            errors += 1
+            continue
+        unk_max = max(unk_max, out.unk_rate)
+        assert out.n_ops > 0, (arch, layer)
+        want = service.predict_text(ref_text)
+        assert out.key == want.key, (arch, layer)
+        assert out.predictions == want.predictions
+    assert errors == 0
+    assert unk_max == 0.0
+
+
+def test_fuzz_of_the_ports_lowering_raises_nothing(port_corpus, service):
+    """200 seeded mutations of the port's lowered texts: each gives a
+    prediction or a structured error that is not a forward failure."""
+    seeds = [t for _, _, t in port_corpus]
+    mutated = FD.fuzz_corpus(seeds, 200, np.random.default_rng(0))
+    assert len(mutated) == 200
+    outs = [service.predict_text(t) for t in mutated]   # must not raise
+    errors = [o for o in outs if isinstance(o, FD.IngestError)]
+    assert all(e.stage != "predict" for e in errors)
+    assert len(errors) < len(outs)
 
 
 @settings(max_examples=25, deadline=None)

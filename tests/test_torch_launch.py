@@ -4,18 +4,23 @@ package's train CLI evaluates in the other's for every family; the
 serve CLI prints the reference's lines in-process, through the fused
 forward's plain version and through 2 spawned CPU replicas with
 telemetry that the obs CLI reports; the optimize CLI resumes a run the
-reference finished and finds its searches; and every CLI defaults to
-the card."""
+reference finished and finds its searches; the ingest CLI prints the
+reference's lines over the port's own StableHLO lowering; and every CLI
+defaults to the card."""
 import signal
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.launch import ingest as R_INGEST
 from repro.launch import optimize as R_OPTIMIZE
 from repro.launch import train as R_TRAIN
+from repro_torch.ir import stablehlo as SH
 from repro_torch.kernels import conv1d_stack as K
+from repro_torch.launch import ingest as T_INGEST
 from repro_torch.launch import obs as OBS
 from repro_torch.launch import optimize as T_OPTIMIZE
 from repro_torch.launch import serve as T_SERVE
@@ -32,6 +37,10 @@ SERVE_ARGS = ["--device", "cpu", "--requests", "40", "--train-steps", "5",
 OPT_ARGS = ["--n-graphs", "80", "--train-steps", "10", "--eval-graphs",
             "6", "--beam", "2", "--depth", "2", "--max-candidates", "16",
             "--eval-budget", "32"]
+# 80 graphs: the reference CLI's training batch is 64 rows
+INGEST_ARGS = ["--arch", "all", "--n-graphs", "80", "--train-steps", "5",
+               "--fuzz", "20"]
+KERNEL_RTOL = 2e-4       # the fused forward's plain version vs the model
 # the reference serve CLI's lines on the in-process path, in order
 SERVE_LINES = ["training joint multi-target cost model", "trained at ",
                "server up: heads=", "served ", "  batches=",
@@ -183,6 +192,73 @@ def test_optimize_resumes_the_references_run(tmp_path, monkeypatch,
                 v, rel=METRIC_RTOL, abs=1e-9), k
 
 
+def ingest_lines(out):
+    """The ingest CLI's output by kind of line."""
+    lines = out.splitlines()
+    kinds = {"service": "service up: ", "lowered": "lowered ",
+             "fuzz": "fuzz: ", "stats": "ingested_texts="}
+    got = {k: sum(ln.startswith(p) for ln in lines)
+           for k, p in kinds.items()}
+    got["predictions"] = sum(" n_ops=" in ln for ln in lines)
+    got["errors"] = sum(" ERROR stage=" in ln for ln in lines)
+    got["uncaught"] = sum("UNCAUGHT" in ln for ln in lines)
+    return got
+
+
+def test_ingest_prints_the_references_lines(monkeypatch, capsys):
+    """All 43 per-layer subgraphs of the ten archs, lowered by the port,
+    predict with no ERROR line, and the fuzz pass counts 0 uncaught
+    exceptions; the reference's CLI prints as many lines of each kind."""
+    got = T_INGEST.main(["--device", "cpu", *INGEST_ARGS])
+    out = capsys.readouterr().out
+    counts = ingest_lines(out)
+    assert counts == {"service": 1, "lowered": 1, "fuzz": 1, "stats": 1,
+                      "predictions": 43, "errors": 0, "uncaught": 0}
+    assert "lowered 43 per-layer subgraphs of 10 archs" in out
+    assert "0 uncaught exceptions" in out
+    assert len(got["arch_rows"]) == 43 and got["fuzz"]["uncaught"] == 0
+    assert max(r.unk_rate for *_, r in got["arch_rows"]) == 0.0
+    run_reference(R_INGEST.main, INGEST_ARGS, monkeypatch)
+    assert ingest_lines(capsys.readouterr().out) == counts
+
+
+def test_ingest_kernel_runs_the_plain_version_on_the_cpu(capsys):
+    """``--kernel`` on the CPU serves through the fused forward's plain
+    version: no kernel launch, the same predictions within 2e-4."""
+    args = ["--device", "cpu", "--arch", "qwen3-0.6b,granite-moe-1b-a400m",
+            "--n-graphs", "80", "--train-steps", "5"]
+    before = K.conv_forward_fused.launches
+    plain = T_INGEST.main(args)
+    kern = T_INGEST.main([*args, "--kernel"])
+    capsys.readouterr()
+    assert K.conv_forward_fused.launches == before
+    assert kern["service"].use_kernel and not plain["service"].use_kernel
+    assert len(kern["arch_rows"]) == len(plain["arch_rows"]) == 9
+    for (*_, p), (*_, q) in zip(plain["arch_rows"], kern["arch_rows"]):
+        assert q.key == p.key
+        for t, v in p.predictions.items():
+            np.testing.assert_allclose(q.predictions[t], v,
+                                       rtol=KERNEL_RTOL)
+
+
+def test_ingest_fuzz_alone_and_a_file(tmp_path, capsys):
+    """``--arch none --fuzz 10`` mutates the affine example; ``--file``
+    ingests a text the test wrote (the port's lowering of a layer)."""
+    T_INGEST.main(["--device", "cpu", "--arch", "none", "--fuzz", "10",
+                   "--train-steps", "0", "--n-graphs", "80"])
+    out = capsys.readouterr().out
+    assert "lowered " not in out and "fuzz: 10 mutated inputs" in out
+    assert "0 uncaught exceptions" in out
+    path = tmp_path / "attention.mlir"
+    layer, fn, specs = SH.arch_subgraphs("qwen3-0.6b")[0]
+    path.write_text(SH.lower_fn(fn, *specs)[0])
+    T_INGEST.main(["--device", "cpu", "--arch", "none", "--file",
+                   str(path), "--train-steps", "0", "--n-graphs", "80"])
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines() if str(path) in ln)
+    assert "n_ops= 28" in line and "ERROR" not in line
+
+
 def test_clis_default_to_the_card(tmp_path):
     """Without ``--device`` every CLI trains or serves on the card; with
     no card it raises instead of running on the CPU."""
@@ -191,6 +267,8 @@ def test_clis_default_to_the_card(tmp_path):
     for main, argv in (
             (T_TRAIN.main, [*TRAIN_ARGS, "--ckpt-dir", str(tmp_path)]),
             (T_SERVE.main, SERVE_ARGS[2:]),
-            (T_OPTIMIZE.main, OPT_ARGS)):
+            (T_OPTIMIZE.main, OPT_ARGS),
+            (T_INGEST.main, ["--n-graphs", "80", "--train-steps", "1"]),
+            (T_INGEST.main, ["--n-graphs", "80", "--train-steps", "0"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)

@@ -6,8 +6,8 @@ wire format, the consistent-hash ring and the client's retry, backoff,
 health and shed state machine (a fake transport, no processes). The
 pure modules (ring, wire packing, shared-cache slots) are held to the
 reference's exactly. The router's featurizer runs on the CPU and never
-forwards. The reference's stablehlo case waits for a port of
-``ir/stablehlo.py``."""
+forwards. The reference's stablehlo case runs on the port's own
+lowering (``repro_torch.ir.stablehlo``)."""
 import dataclasses
 import hashlib
 import os
@@ -28,6 +28,7 @@ from repro.core import service as R_SVC
 from repro.core import tokenizer as R_TOK
 from repro.ir import frontdoor as R_FD
 from repro.ir import samplers as R_SMP
+from repro.ir import stablehlo as R_SH
 from repro.serving import router as R_ROUTER
 from repro.serving import shared_cache as R_SC
 from repro.serving import transport as R_T
@@ -38,6 +39,7 @@ from repro_torch.core import tokenizer as TOK
 from repro_torch.core.server import ServerOverloadedError
 from repro_torch.ir import frontdoor as FD
 from repro_torch.ir import samplers
+from repro_torch.ir import stablehlo as SH
 from repro_torch.serving import (HashRing, ReplicaClient,
                                  ReplicaSupervisor, ServiceSpec,
                                  SharedRowCache, start_replicas)
@@ -159,6 +161,17 @@ def test_replicated_predict_text_parity(world, service, tier):
     again = client.predict_text(FD.AFFINE_EXAMPLE)   # client-side LRU
     assert again.predictions == got.predictions
     assert isinstance(client.predict_text(b"\x00\xff"), FD.IngestError)
+    # a real lowered arch subgraph, the port's own lowering, rides the
+    # same path (truncated to this fixture's bucket identically on both
+    # sides) and keys as the reference's lowering of the same layer
+    _, _, mlir = SH.lower_arch_corpus(["qwen3-0.6b"], seq=4)[0]
+    _, _, r_mlir = R_SH.lower_arch_corpus(["qwen3-0.6b"], seq=4)[0]
+    direct = service.predict_text(mlir)
+    via = client.predict_text(mlir)
+    assert not isinstance(via, FD.IngestError)
+    assert via.key == direct.key == world["ref"].predict_text(r_mlir).key
+    for t, v in direct.predictions.items():
+        np.testing.assert_allclose(via.predictions[t], v, rtol=1e-6)
 
 
 def test_replicated_use_kernel_parity(world):

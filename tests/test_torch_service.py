@@ -167,6 +167,51 @@ def test_warmup_runs_every_shape(world):
     assert svc.warmup_shapes == n and svc.forward_batches == 0
 
 
+# --------------------------------- mirrors of tests/test_multihead.py:174-235
+def test_lru_eviction_bounds_cache(world):
+    svc = world["make"](cache_size=8)
+    rng = np.random.default_rng(8)
+    gs = [T_SMP.sample_graph(rng) for _ in range(30)]
+    n_unique = len({svc._encode(g).tobytes() for g in gs})
+    svc.predict_all(gs)
+    assert len(svc._cache) == min(8, n_unique)
+    svc.predict_all(gs[-4:])             # refresh recency for these four
+    keys = set(svc._cache)
+    svc.predict_all(gs[-4:])             # pure hits: no eviction, no growth
+    assert set(svc._cache) == keys
+    assert len(svc._cache) <= 8
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_predict_all_empty_batch(world, use_kernel):
+    out = world["make"](use_kernel=use_kernel).predict_all([])
+    assert set(out) == set(RM.DEFAULT_HEADS)
+    assert set(world["ref"].predict_all([])) == set(out)
+    for v in out.values():
+        assert v.shape == (0,)
+
+
+def test_named_single_head_rejects_mismatched_target(world):
+    """A service that knows it predicts latency does not answer a
+    register-pressure request with latency numbers; its latency agrees
+    with the reference's single-head service on the same params."""
+    params = RM.conv_init(jax.random.PRNGKey(0), CFG)
+    stats = {"mu": 0.0, "sigma": 1.0}
+    svc = T_SVC.CostModelService(
+        "conv1d", CFG, jax.tree.map(np.asarray, params), world["ref"].vocab,
+        stats, mode="ops", max_seq=64, target="latency_us", device="cpu")
+    ref = R_SVC.CostModelService("conv1d", CFG, params, world["ref"].vocab,
+                                 stats, mode="ops", max_seq=64,
+                                 target="latency_us")
+    g = world["graphs"][0]
+    r_g = R_SMP.sample_graph(np.random.default_rng(7))   # the same graph
+    assert svc.predict(g, "latency_us") == svc.predict(g)
+    with pytest.raises(KeyError):
+        svc.predict(g, "register_pressure")
+    np.testing.assert_allclose(svc.predict(g), ref.predict(r_g),
+                               rtol=TOL, atol=TOL)
+
+
 def test_server_threads_answer_like_direct(world):
     """4 client threads through the port's async server get what direct
     predict_all gives (allclose), and repeats coalesce or hit the LRU."""

@@ -186,6 +186,34 @@ Phases, each printing JSON lines:
    are two models: AdamW amplifies the devices' rounding). Reports the lowering's seconds, texts a
    second through ``predict_text`` (a fresh K1 service, cold LRU), K1's
    launches and the phase's seconds.
+14. ``lm`` — the LLM substrate (``repro_torch.models``) on the card,
+   plain PyTorch: no kernel lies on this path, and the phase line says
+   so. qwen3-0.6b at its published widths (28 layers, d_model 1024, 16
+   query and 8 KV heads of 128, vocab 151,936), params from the port's
+   ``init_params`` with a seeded generator (float32 master weights,
+   bf16 compute): 10 training steps at B=8, S=512 on
+   ``synthetic_lm_batches(seed=0)`` with remat and AdamW (lr 1e-3, 5
+   warm-up steps): every loss and grad norm finite, the last loss below
+   the first; ms a step, tokens a second and the peak of
+   ``torch.cuda.max_memory_allocated``. Then a prefill of 2 x 512 and,
+   through ``make_decode_step`` on a bf16 KV cache of 1024, the prompt
+   fed token by token and 32 greedy tokens (prefill ms, ms a prompt
+   token, ms a decoded token). At float32, the decode path's logits at
+   every prompt position within LM_REL of the prefill's, and its greedy
+   tokens equal to the prefill's argmax wherever the prefill's top-2 gap
+   exceeds twice the two paths' largest difference (closer: a tie,
+   counted). A forward of 2 x 64 at float32 under torch's default
+   switches within LM_REL of the CPU's, and the same forward with TF32
+   matmuls, which must miss that limit or the line says the limit
+   cannot tell them apart. The attention's route timed at the training
+   shape beside the one not taken (bf16 products rounded to bf16). All
+   ten architectures, reduced, with params through
+   ``params.lm_from_numpy``: the float32 forward within LM_REL of the
+   CPU's, a finite bf16 forward, one train step and 8 decode steps.
+   Profiles one training step and 8 decode steps (the card's time and
+   busy share, launches, the top kernels) and records what shares the
+   host at the phase's start (threads, child processes, a fixed Python
+   loop's seconds): the step and decode are host-bound.
 
 Then one ``{"kernels": [...]}`` line (K1's and K2's ``launches`` add
 the replicated phase's, counted in the replicas, and K1's the cli and
@@ -1359,17 +1387,26 @@ def profile_steps(engine, train, start: int) -> dict:
     wall_s = time.perf_counter() - t["0"]
     prof.stop()
     n = engine.ecfg.steps - start
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    busy_us, launches, top = kernel_times(prof, 5)
     return {"steps": n, "wall_ms_per_step": wall_s * 1e3 / n,
             "card_ms_per_step": busy_us / 1e3 / n,
             "card_busy_share": busy_us / 1e6 / wall_s,
-            "launches_per_step": sum(e.count for e in kernels) / n,
+            "launches_per_step": launches / n,
             "top_kernels_ms_per_step": {
-                e.key[:60]: e.self_device_time_total / 1e3 / n
-                for e in top}}
+                k[:60]: us / 1e3 / n for k, us in top}}
+
+
+def kernel_times(prof, n_top: int) -> tuple:
+    """A profile's card time (us) summed over its kernels, its kernel
+    launches, and its ``n_top`` kernels with the most card time as
+    (name, us) pairs."""
+    import torch
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n_top]
+    return (sum(e.self_device_time_total for e in kernels),
+            sum(e.count for e in kernels),
+            [(e.key, e.self_device_time_total) for e in top])
 
 
 def phase_train(card: str) -> dict:
@@ -2928,6 +2965,362 @@ def phase_ingest(card: str) -> dict:
     emit(out)
     return out
 
+# ------------------------------------------------------------- the LM phase
+LM_ARCH = "qwen3-0.6b"
+LM_TRAIN = (8, 512, 10)          # batch, sequence, steps
+LM_DECODE = (2, 512, 32, 1024)   # batch, prompt, new tokens, cache max_seq
+LM_CPU = (2, 64)                 # the card-vs-CPU forward's batch, sequence
+LM_DECODE_STEPS = 8              # each reduced arch
+# float32 logits, card vs CPU (and the decode path vs the forward on the
+# card), as the largest difference over the largest |logit|: float32
+# sums in other orders (cuBLAS against oneDNN) through up to 28 layers
+# landed 6.3e-7 - 2.0e-6, TF32 matmuls 1.26e-4 (first chip run; 1e-4
+# let TF32 miss by only 1.26x)
+LM_REL = 1e-5
+
+
+def lm_batch(cfg, seed: int, B: int, S: int) -> dict:
+    """A reduced arch's numpy batch: tokens, labels and the frontend's
+    stub embeddings, as the reference's arch tests make them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(1, cfg.vocab, (B, S)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.frontend == "vision":
+        b["patch_embeds"] = (rng.normal(size=(
+            B, cfg.vision_patches, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.frontend == "audio":
+        b["frame_embeds"] = (rng.normal(size=(
+            B, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+    return b
+
+
+def bf16_products_attention(q, k, v):
+    """The attention route the port does not take, timed beside it: bf16
+    products whose outputs round to bf16 (the reference asks for float32
+    outputs of its bf16 products), one causal block, float32 softmax."""
+    import torch
+    S, D = q.shape[1], q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * D ** -0.5
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    w = torch.softmax(torch.where(mask, logits.float(), -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+def out_dtype_attention(q, k, v):
+    """The reference's products on the tensor cores: bf16 operands,
+    float32 outputs (``torch.bmm(..., out_dtype=torch.float32)``), one
+    causal block, float32 softmax; timed beside the port's route."""
+    import torch
+    B, S, H, D = q.shape
+
+    def heads(t):
+        return t.permute(0, 2, 1, 3).reshape(B * H, S, D)
+    logits = torch.bmm(heads(q), heads(k).transpose(1, 2),
+                       out_dtype=torch.float32) * D ** -0.5
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    w = torch.softmax(torch.where(mask, logits, -1e30), dim=-1)
+    out = torch.bmm(w.to(v.dtype), heads(v), out_dtype=torch.float32)
+    return out.reshape(B, H, S, D).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def profile_calls(fn, n: int) -> dict:
+    """``fn`` called ``n`` times under the profiler: wall ms a call (the
+    card synchronized at both ends), the card's kernel ms a call, the
+    busy share, launches a call and the eight kernels with the most card
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    busy_us, launches, top = kernel_times(prof, 8)
+    return {"calls": n, "wall_ms": wall_s * 1e3 / n,
+            "card_ms": busy_us / 1e3 / n,
+            "card_busy_share": busy_us / 1e6 / wall_s,
+            "launches": launches / n,
+            "top_kernels_ms": {k[:70]: us / 1e3 / n for k, us in top}}
+
+
+def phase_lm(card: str, device: str = "cuda", cfg=None) -> dict:
+    """The LLM substrate on the card (see the module docstring);
+    ``device`` and ``cfg`` exist to rehearse the phase on the CPU at a
+    reduced width."""
+    import multiprocessing
+    import numpy as np
+    import torch
+    from repro_torch import params as P
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.data import pipeline as PIPE
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as MODEL
+    from repro_torch.models import steps as STEPS
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    f32 = torch.float32
+    # what shares the host with this phase (its steps are host-bound):
+    # threads and child processes left by earlier phases, and a fixed
+    # Python loop's seconds, a yardstick of the host's speed (it spread
+    # 0.096-0.189 s between calls, with the host-bound times)
+    t0 = time.perf_counter()
+    sum(i * i for i in range(2_000_000))
+    host = {"threads": sorted(t.name for t in threading.enumerate()),
+            "children": len(multiprocessing.active_children()),
+            "python_loop_s": time.perf_counter() - t0}
+
+    def timed(fn):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def on(b, d):
+        return {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+
+    def rel(ref, got) -> float:
+        return float((got.float() - ref.float()).abs().max()
+                     / ref.float().abs().max())
+
+    # full width: train LM_TRAIN steps at f32 master weights, bf16 compute
+    cfg = cfg or get_arch(LM_ARCH)
+    B, S, n_steps = LM_TRAIN
+    with dev:
+        params = MODEL.init_params(torch.Generator(dev).manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in P.tree_flatten(params))
+    step = STEPS.make_train_step(cfg, adamw.AdamWConfig(
+        lr=1e-3, warmup_steps=5, total_steps=n_steps))
+    state = adamw.init_state(params)
+    data = PIPE.synthetic_lm_batches(cfg.vocab, B, S, seed=0)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    step_ms, metrics = [], []
+    for _ in range(n_steps):
+        batch = on(next(data), dev)
+        (params, state, m), ms = timed(lambda: step(params, state, batch))
+        step_ms.append(ms)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    train_profile = None
+    if cuda:    # one more step on the last batch, profiled, not kept
+        train_profile = profile_calls(lambda: step(params, state, batch), 1)
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    check(bool(np.isfinite(losses + gnorms).all()),
+          f"lm: losses {losses}, grad norms {gnorms}")
+    check(losses[-1] < losses[0], f"lm: losses {losses} did not fall")
+    check(all(bool(torch.isfinite(t).all()) for t in P.tree_flatten(params)),
+          "lm: trained params not finite")
+    del state, metrics
+    ms_step = float(np.median(step_ms[1:]))
+
+    # prefill and greedy decode, bf16 compute and KV cache
+    Bd, n_prompt, n_new, max_seq = LM_DECODE
+    prompt = torch.from_numpy(next(PIPE.synthetic_lm_batches(
+        cfg.vocab, Bd, n_prompt, seed=1))["tokens"]).to(dev)
+    prefill = STEPS.make_prefill_step(cfg)
+    prefill(params, {"tokens": prompt})                       # warm-up
+    last, prefill_ms = timed(lambda: prefill(params, {"tokens": prompt}))
+    decode = STEPS.make_decode_step(cfg)
+    cache = MODEL.init_cache(cfg, Bd, max_seq, device=dev)
+
+    def feed():
+        tok = None
+        for i in range(n_prompt):
+            tok, _ = decode(params, cache, prompt[:, i:i + 1], i)
+        return tok
+
+    def generate(tok):
+        out = []
+        for i in range(n_new):
+            tok, _ = decode(params, cache, tok, n_prompt + i)
+            out.append(tok)
+        return torch.cat(out, dim=1)
+
+    first, feed_ms = timed(feed)
+    new, gen_ms = timed(lambda: generate(first))
+    decode_profile = None
+    if cuda:    # 8 more steps past the generated ones, profiled
+        pos = iter(range(n_prompt + n_new, n_prompt + n_new + 8))
+        decode_profile = profile_calls(
+            lambda: decode(params, cache, new[:, -1:], next(pos)), 8)
+    check(int(new.min()) >= 0 and int(new.max()) < cfg.vocab,
+          f"lm: decoded tokens out of range {new.min()}..{new.max()}")
+    check(all(bool(torch.isfinite(t.float()).all())
+              for t in P.tree_flatten(cache)), "lm: KV cache not finite")
+    bf16_agree = bool((first == STEPS.next_token(last, cfg.vocab)).all())
+    del cache
+
+    # prefill vs the decode path at float32, every prompt position: the
+    # greedy tokens agree wherever the prefill's top-2 gap exceeds twice
+    # the largest logit difference of the two paths (closer is a tie)
+    with torch.no_grad():
+        pre, _ = MODEL.forward(params, cfg, {"tokens": prompt}, cdt=f32,
+                               remat=False)
+    cache32 = MODEL.init_cache(cfg, Bd, max_seq, kv_dtype=f32, device=dev)
+
+    def decode32():
+        diffs, toks = [], []
+        for i in range(n_prompt):
+            lg, _ = MODEL.decode_forward(params, cfg, prompt[:, i:i + 1],
+                                         cache32, i, cdt=f32)
+            diffs.append((lg - pre[:, i]).abs().max())
+            toks.append(STEPS.next_token(lg, cfg.vocab))
+        return torch.stack(diffs).max(), torch.cat(toks, dim=1)
+
+    (eps, dec_tok), dec32_ms = timed(decode32)
+    del cache32
+    pre_tok = STEPS.next_token(pre.flatten(0, 1), cfg.vocab).view(
+        Bd, n_prompt)
+    top2 = pre[..., :cfg.vocab].topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= 2 * eps
+    agree = dec_tok == pre_tok
+    decode_rel = float(eps / pre.abs().max())
+    del pre
+    check(decode_rel <= LM_REL, f"lm: float32 decode vs prefill logits "
+          f"{decode_rel:.3g} apart (limit {LM_REL})")
+    check(bool(agree[~tie].all()), f"lm: float32 decode disagrees with "
+          f"the prefill at {int((~agree & ~tie).sum())} positions")
+
+    # the card against the CPU at float32, torch's default switches, and
+    # the same forward with TF32 matmuls (the sensitivity case)
+    cb = torch.from_numpy(next(PIPE.synthetic_lm_batches(
+        cfg.vocab, *LM_CPU, seed=2))["tokens"])
+
+    @torch.no_grad()
+    def fwd32(p, tokens):
+        return MODEL.forward(p, cfg, {"tokens": tokens}, cdt=f32,
+                             remat=False)[0].cpu()
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False   # torch's defaults
+        torch.backends.cudnn.allow_tf32 = True
+        card_logits, card_fwd_ms = timed(lambda: fwd32(params, cb.to(dev)))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32_logits = fwd32(params, cb.to(dev))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    cpu_params = P.tree_map(lambda t: t.cpu(), params)
+    cpu_logits, cpu_fwd_ms = timed(lambda: fwd32(cpu_params, cb))
+    del cpu_params
+    cpu_rel, tf32_rel = rel(cpu_logits, card_logits), rel(cpu_logits,
+                                                         tf32_logits)
+    check(cpu_rel <= LM_REL, f"lm: card vs CPU logits {cpu_rel:.3g} apart "
+          f"(limit {LM_REL})")
+    tf32_line = (f"TF32 misses the limit by {tf32_rel / LM_REL:.3g}x"
+                 if tf32_rel > LM_REL else
+                 "cannot tell TF32 from float32 at this limit")
+
+    # the attention route's cost at the training shape (the card only)
+    attention = None
+    if cuda:
+        H, D = cfg.n_heads, cfg.resolved_head_dim
+        g = torch.Generator(dev).manual_seed(3)
+        q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        route = TL.flash_attention(q, k, v, causal=True)
+
+        def differ(other) -> float:
+            """Share of the bf16 outputs not equal to the route's."""
+            return float((other != route).float().mean())
+
+        ms_route, ms_alt = time_pair(
+            lambda: TL.flash_attention(q, k, v, causal=True),
+            lambda: bf16_products_attention(q, k, v), n_samples=7, reps=3)
+        attention = {
+            "shape": [B, S, H, D], "float32_products_ms": ms_route,
+            "bf16_products_ms": ms_alt,
+            "bf16_products_differ": differ(bf16_products_attention(q, k,
+                                                                   v))}
+        try:
+            ms_route2, ms_out = time_pair(
+                lambda: TL.flash_attention(q, k, v, causal=True),
+                lambda: out_dtype_attention(q, k, v), n_samples=7, reps=3)
+            attention.update(
+                float32_products_ms_2=ms_route2, out_dtype_ms=ms_out,
+                out_dtype_differ=differ(out_dtype_attention(q, k, v)))
+            qg = q.detach().requires_grad_()
+            out_dtype_attention(qg, k, v).float().sum().backward()
+            attention["out_dtype_backward"] = "ok"
+        except (RuntimeError, TypeError) as e:
+            # no out_dtype in this torch, or no derivative for it
+            attention["out_dtype"] = f"{type(e).__name__}: {e}"[:200]
+
+    del params
+
+    # the ten archs, reduced: params through lm_from_numpy, forward (card
+    # vs CPU at float32; bf16 finite), one train step, decode steps
+    archs = {}
+    for name in sorted(ARCHS):
+        rcfg = get_arch(name).reduced()
+        tree = P.to_numpy(MODEL.init_params(
+            torch.Generator().manual_seed(0), rcfg))
+        pd, pc = (P.lm_from_numpy(tree, rcfg, d) for d in (dev, "cpu"))
+        b = lm_batch(rcfg, 0, 2, 16)
+        with torch.no_grad():
+            ld = MODEL.forward(pd, rcfg, on(b, dev), cdt=f32)[0]
+            lc = MODEL.forward(pc, rcfg, on(b, "cpu"), cdt=f32)[0]
+            l16, aux = MODEL.forward(pd, rcfg, on(b, dev))
+        r = rel(lc, ld.cpu())
+        check(r <= LM_REL, f"lm {name}: card vs CPU {r:.3g} (limit "
+              f"{LM_REL})")
+        check(bool(torch.isfinite(l16.float()).all())
+              and bool(torch.isfinite(aux)), f"lm {name}: bf16 forward")
+        p2, _, m = STEPS.make_train_step(rcfg, adamw.AdamWConfig(
+            lr=1e-3, total_steps=5, warmup_steps=0))(
+            pd, adamw.init_state(pd), on(b, dev))
+        check(np.isfinite([float(m["loss"]), float(m["grad_norm"])]).all()
+              and all(bool(torch.isfinite(t).all())
+                      for t in P.tree_flatten(p2)), f"lm {name}: train step")
+        cache = MODEL.init_cache(rcfg, 2, 16, device=dev)
+        dstep = STEPS.make_decode_step(rcfg)
+        tok = torch.ones((2, 1), dtype=torch.int32, device=dev)
+        for i in range(LM_DECODE_STEPS):
+            tok, _ = dstep(pd, cache, tok, i)
+        check(0 <= int(tok.min()) and int(tok.max()) < rcfg.vocab
+              and all(bool(torch.isfinite(t.float()).all())
+                      for t in P.tree_flatten(cache)), f"lm {name}: decode")
+        archs[name] = {"card_vs_cpu_rel": r, "loss": float(m["loss"])}
+
+    out = {"phase": "lm", "arch": cfg.name, "params": n_params,
+           "train": {"batch": B, "seq": S, "steps": n_steps,
+                     "losses": losses, "grad_norms": gnorms,
+                     "ms_per_step": ms_step, "step_ms": step_ms,
+                     "tokens_per_s": B * S / ms_step * 1e3,
+                     "peak_bytes": peak, "profile": train_profile},
+           "decode": {"batch": Bd, "prompt": n_prompt, "new": n_new,
+                      "max_seq": max_seq, "prefill_ms": prefill_ms,
+                      "prompt_ms_per_token": feed_ms / n_prompt,
+                      "ms_per_token": gen_ms / n_new,
+                      "float32_ms_per_token": dec32_ms / n_prompt,
+                      "profile": decode_profile,
+                      "bf16_first_token_agrees": bf16_agree},
+           "float32_decode_vs_prefill": {
+               "rel": decode_rel, "limit": LM_REL,
+               "positions": int(agree.numel()), "agree": int(agree.sum()),
+               "ties": int(tie.sum())},
+           "card_vs_cpu": {"rel": cpu_rel, "limit": LM_REL,
+                           "tf32_rel": tf32_rel, "tf32": tf32_line,
+                           "card_ms": card_fwd_ms, "cpu_ms": cpu_fwd_ms},
+           "attention": attention, "reduced_archs": archs, "host": host,
+           "kernels": "none: plain PyTorch (cuBLAS); the reference "
+                      "reaches no TPU kernel on this path",
+           "phase_seconds": time.perf_counter() - t_phase, "card": card}
+    emit(out)
+    return out
+
 
 def main() -> int:
     import torch
@@ -2954,6 +3347,7 @@ def main() -> int:
     phase_families(dev["nvidia_smi"])
     cli = phase_cli(dev["nvidia_smi"])
     ingest = phase_ingest(dev["nvidia_smi"])
+    phase_lm(dev["nvidia_smi"])
     t64, t4, t1 = (kern["timings"][b] for b in (64, 4, 1))
     l64, l1 = lstm["timings"][64], lstm["timings"][1]
     w64, w1 = tower["timings"][64], tower["timings"][1]

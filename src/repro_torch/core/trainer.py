@@ -168,7 +168,7 @@ class TrainEngine:
             raise NotImplementedError(
                 f"a {self.ecfg.mesh_data} x {self.ecfg.mesh_model} mesh "
                 f"needs the multi-card trainer, which is not ported yet "
-                f"(ROADMAP M9); the port trains on one device")
+                f"(ROADMAP M9b); the port trains on one device")
         self.device = torch.device(self.ecfg.device or "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(

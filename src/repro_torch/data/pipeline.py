@@ -27,8 +27,8 @@ trick serving uses; see core/service.py). Two modes:
 Either way the epoch plan is a pure function of (seed, epoch), so the
 (epoch, step) cursor contract — and checkpoint/resume determinism — is
 unchanged. Numpy only: the same seed, shard and bucket mode give the
-reference's batches, in its order. The synthetic LM token stream comes
-with the LM substrate.
+reference's batches, in its order, and :func:`synthetic_lm_batches`
+gives the reference's token stream bit for bit.
 """
 from __future__ import annotations
 
@@ -229,3 +229,19 @@ class Loader:
                 q.get_nowait()
             except queue.Empty:
                 pass
+
+
+def synthetic_lm_batches(vocab: int, batch: int, seq: int, *, seed: int = 0
+                         ) -> Iterator[Dict[str, np.ndarray]]:
+    """Synthetic token stream for the LM training drivers (structured enough
+    to have learnable statistics: Zipfian unigram + local repeats)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    while True:
+        toks = rng.choice(vocab, size=(batch, seq + 1), p=probs)
+        rep = rng.random((batch, seq + 1)) < 0.3   # local bigram structure
+        toks[:, 1:] = np.where(rep[:, 1:], toks[:, :-1], toks[:, 1:])
+        yield {"tokens": toks[:, :-1].astype(np.int32),
+               "labels": toks[:, 1:].astype(np.int32)}

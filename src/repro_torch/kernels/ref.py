@@ -81,3 +81,18 @@ def conv_forward_ref(params, ids: torch.Tensor):
     p32 = tree_map(lambda a: a.float() if a.is_floating_point() else a,
                    params)
     return CM.conv_apply(p32, ids)
+
+
+def decode_attention_ref(q, k_cache, v_cache, index):
+    """Grouped decode attention oracle. q: (B, nkv, G, D);
+    k_cache/v_cache: (B, nkv, S, D); attends positions <= index. float32
+    whatever the inputs' dtype. No kernel stands behind it: the LM
+    decode path (models/layers.py::attention_apply) runs plain PyTorch."""
+    D = q.shape[-1]
+    logits = torch.einsum("bhgd,bhsd->bhgs", q.float(),
+                          k_cache.float()) / D ** 0.5
+    S = k_cache.shape[2]
+    valid = torch.arange(S, device=q.device) <= index
+    logits = torch.where(valid[None, None, None], logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhgs,bhsd->bhgd", w, v_cache.float())

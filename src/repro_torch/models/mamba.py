@@ -1,0 +1,157 @@
+"""Selective SSM (Mamba) block for the Jamba hybrid architecture.
+
+Training/prefill uses a chunked scan: a loop over sequence chunks with a
+log-depth (Hillis-Steele) inclusive scan inside each chunk, so the
+(B, S, d_inner, d_state) tensor never exists at full sequence length.
+The scan composes the pairs ``(a, b)`` of ``s' = a * s + b`` by
+products and sums only: the cumulative product of ``exp(dt * A)``
+divided out would underflow to 0 and give inf or NaN. Its combine order
+is not the reference's, so the two agree to float32 rounding. Decode is
+the O(1) recurrent update.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import _init, single_device
+
+MAMBA_CHUNK = 256
+
+
+def mamba_init(generator, cfg) -> Dict[str, Any]:
+    h = cfg.hybrid
+    d = cfg.d_model
+    di = h.expand * d
+    dt_rank = max(d // 16, 1)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    return {
+        "in_proj": _init(generator, (d, 2 * di)),
+        "conv_w": _init(generator, (h.d_conv, di), scale=0.5),
+        "conv_b": torch.zeros((di,)),
+        "x_proj": _init(generator, (di, dt_rank + 2 * h.d_state)),
+        "dt_proj": _init(generator, (dt_rank, di), scale=dt_rank ** -0.5),
+        "dt_bias": torch.log(torch.expm1(torch.exp(
+            torch.rand((di,), generator=generator) * (hi - lo) + lo))),
+        "A_log": torch.log(torch.arange(
+            1, h.d_state + 1, dtype=torch.float32).repeat(di, 1)),
+        "D": torch.ones((di,)),
+        "out_proj": _init(generator, (di, d)),
+    }
+
+
+def mamba_axes(cfg):
+    return {
+        "in_proj": ("embed", "ffn"),
+        "conv_w": (None, "ffn"),
+        "conv_b": ("ffn",),
+        "x_proj": ("ffn", None),
+        "dt_proj": (None, "ffn"),
+        "dt_bias": ("ffn",),
+        "A_log": ("ffn", None),
+        "D": ("ffn",),
+        "out_proj": ("ffn", "embed"),
+    }
+
+
+def _causal_conv(x, w, b, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv. x: (B, S, di); w: (k, di).
+    state: (B, k-1, di)."""
+    k = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
+    new_state = xp[:, -(k - 1):] if k > 1 else None
+    return out + b, new_state
+
+
+def _ssm_params(p, x, cfg, cdt):
+    """x: (B, S, di) -> dt (B,S,di), B_ (B,S,N), C (B,S,N), A (di,N)."""
+    h = cfg.hybrid
+    dt_rank = p["dt_proj"].shape[0]
+    proj = x @ p["x_proj"].to(cdt)
+    dt_in, Bm, Cm = torch.split(proj, [dt_rank, h.d_state, h.d_state],
+                                dim=-1)
+    dt = F.softplus((dt_in @ p["dt_proj"].to(cdt)).float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])  # (di, N)
+    return dt, Bm.float(), Cm.float(), A
+
+
+def _scan(a, b):
+    """Inclusive scan of s_t = a_t * s_{t-1} + b_t from s = 0 along dim 1:
+    returns (prod a_1..t, s_t) in log2(c) steps."""
+    c = a.shape[1]
+    step = 1
+    while step < c:
+        a_prev, b_prev = a[:, :-step], b[:, :-step]
+        b = torch.cat([b[:, :step], a[:, step:] * b_prev + b[:, step:]],
+                      dim=1)
+        a = torch.cat([a[:, :step], a[:, step:] * a_prev], dim=1)
+        step *= 2
+    return a, b
+
+
+def mamba_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16,
+                state: Optional[Dict] = None):
+    """x: (B, S, D). state (decode): {"conv": (B,k-1,di), "ssm": (B,di,N)}.
+
+    Returns (out, new_state)."""
+    single_device(rules)
+    B, S, D = x.shape
+    h = cfg.hybrid
+    di = h.expand * D
+    xc = x.to(cdt)
+    xz = xc @ p["in_proj"].to(cdt)
+    xin, z = torch.chunk(xz, 2, dim=-1)
+
+    if state is not None:
+        xin, conv_state = _causal_conv(xin, p["conv_w"].to(cdt),
+                                       p["conv_b"].to(cdt), state["conv"])
+        xin = F.silu(xin)
+        dt, Bm, Cm, A = _ssm_params(p, xin, cfg, cdt)
+        # recurrent update: s' = exp(dt*A)*s + dt*B*x
+        dA = torch.exp(dt[:, 0, :, None] * A[None])            # B,di,N
+        dBx = dt[:, 0, :, None] * Bm[:, 0, None, :] * \
+            xin[:, 0, :, None].float()
+        s = state["ssm"] * dA + dBx
+        y = (s * Cm[:, 0, None, :]).sum(-1)                    # B,di
+        y = y + p["D"] * xin[:, 0].float()
+        y = (y.to(cdt) * F.silu(z[:, 0]))[:, None]             # B,1,di
+        out = y @ p["out_proj"].to(cdt)
+        return out, {"conv": conv_state, "ssm": s}
+
+    # train/prefill: chunked scan
+    xin, _ = _causal_conv(xin, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
+    xin = F.silu(xin)
+    dt, Bm, Cm, A = _ssm_params(p, xin, cfg, cdt)
+    x32 = xin.float()
+
+    chunk = min(MAMBA_CHUNK, S)
+    s0 = torch.zeros((B, di, h.d_state), device=x.device)
+    ys = []
+    for start in range(0, S, chunk):
+        sl = slice(start, start + chunk)
+        xc_, dt_, B_, C_ = x32[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
+        dA = torch.exp(dt_[..., None] * A)                     # B,c,di,N
+        dBx = dt_[..., None] * B_[:, :, None, :] * xc_[..., None]
+        aA, aB = _scan(dA, dBx)
+        s = aA * s0[:, None] + aB                              # B,c,di,N
+        ys.append((s * C_[:, :, None, :]).sum(-1))             # B,c,di
+        s0 = s[:, -1]
+    y = torch.cat(ys, dim=1)
+    y = y + p["D"] * x32
+    y = y.to(cdt) * F.silu(z)
+    out = y @ p["out_proj"].to(cdt)
+    return out, None
+
+
+def mamba_init_state(cfg, batch, dtype=torch.float32):
+    h = cfg.hybrid
+    di = h.expand * cfg.d_model
+    return {"conv": torch.zeros((batch, h.d_conv - 1, di), dtype=dtype),
+            "ssm": torch.zeros((batch, di, h.d_state))}

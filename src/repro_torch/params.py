@@ -224,3 +224,25 @@ def xformer_init(cfg, heads: Optional[Sequence[str]] = None, *,
     else:
         p["head"] = _linear((d, 1), generator)
     return p
+
+
+def lm_from_numpy(tree, cfg, device, dtype: Optional[torch.dtype] = None):
+    """An LM param tree (numpy leaves, in the reference's layout, as
+    ``to_numpy`` gives them for either package's tree) -> tensors on
+    ``device``. Every key and shape is checked against the port's
+    ``abstract_params(cfg)`` first, and any difference raises
+    ``ValueError`` naming the leaf, so a tree of another architecture or
+    size never loads by position. ``dtype`` casts the floating leaves."""
+    from repro_torch.models.steps import abstract_params
+    want = dict(tree_flatten_with_paths(abstract_params(cfg)))
+    got = dict(tree_flatten_with_paths(tree))
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"{cfg.name}: LM params missing {missing}, "
+                         f"unexpected {extra}")
+    for path, leaf in got.items():
+        if tuple(np.shape(leaf)) != tuple(want[path].shape):
+            raise ValueError(f"{cfg.name}: {path} has shape "
+                             f"{tuple(np.shape(leaf))}, the model "
+                             f"{tuple(want[path].shape)}")
+    return from_numpy(tree, device, dtype)

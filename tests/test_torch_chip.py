@@ -874,3 +874,83 @@ def test_ingest_cli_on_card_launches_once_a_shape_and_batch(cuda, capsys):
     assert K.conv_forward_fused.launches - before == \
         svc.warmup_shapes + svc.forward_batches
     assert "0 uncaught exceptions" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ LLM substrate
+def lm_numpy_batch(cfg, B, S, seed=0):
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(1, cfg.vocab, (B, S)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.frontend == "vision":
+        b["patch_embeds"] = (rng.normal(size=(
+            B, cfg.vision_patches, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.frontend == "audio":
+        b["frame_embeds"] = (rng.normal(size=(
+            B, cfg.encoder_seq, cfg.d_model)) * 0.02).astype(np.float32)
+    return b
+
+
+def test_lm_full_width_qwen3_train_step_on_card(cuda):
+    """qwen3-0.6b at its published widths: one train step (f32 master
+    weights, bf16 compute, remat, the chunked fused loss) is finite and
+    moves every param."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as MODEL
+    from repro_torch.models import steps as STEPS
+    from repro_torch.optim import adamw
+    cfg = get_arch("qwen3-0.6b")
+    with cuda:
+        params = MODEL.init_params(torch.Generator(cuda).manual_seed(0),
+                                   cfg)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+             lm_numpy_batch(cfg, 2, 256).items()}
+    step = STEPS.make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))
+    new, state, m = step(params, adamw.init_state(params), batch)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
+    assert 11.0 < float(m["loss"]) < 13.0        # ~ln(151936) at init
+    for a, b in zip(P.tree_flatten(params), P.tree_flatten(new)):
+        assert bool(torch.isfinite(b).all()) and not torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", [
+    "granite-moe-1b-a400m", "jamba-v0.1-52b", "llava-next-34b",
+    "phi3.5-moe-42b-a6.6b", "qwen1.5-32b", "qwen3-0.6b", "qwen3-1.7b",
+    "starcoder2-3b", "whisper-small", "xlstm-125m"])
+def test_lm_reduced_arch_card_matches_cpu(cuda, name):
+    """Each registered arch, reduced, on the same params (numpy, through
+    lm_from_numpy): float32 logits on the card within 1e-4 of the CPU's
+    (relative to the largest), the greedy decode tokens of 4 float32
+    steps equal, and a bf16 train step finite."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as MODEL
+    from repro_torch.models import steps as STEPS
+    from repro_torch.optim import adamw
+    cfg = get_arch(name).reduced()
+    tree = P.to_numpy(MODEL.init_params(torch.Generator().manual_seed(0),
+                                        cfg))
+    b = lm_numpy_batch(cfg, 2, 16)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = P.lm_from_numpy(tree, cfg, dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        with torch.no_grad():
+            logits = MODEL.forward(params, cfg, batch, cdt=torch.float32)[0]
+        cache = MODEL.init_cache(cfg, 2, 8, kv_dtype=torch.float32,
+                                 device=dev)
+        tok, toks = batch["tokens"][:, :1], []
+        for i in range(4):
+            lg, _ = MODEL.decode_forward(params, cfg, tok, cache, i,
+                                         cdt=torch.float32)
+            tok = STEPS.next_token(lg, cfg.vocab)
+            toks.append(tok.cpu())
+        out[str(dev)] = (logits.cpu(), torch.cat(toks, 1))
+    (lc, tc), (ld, td) = out["cpu"], out[str(cuda)]
+    assert float((ld - lc).abs().max() / lc.abs().max()) <= 1e-4
+    assert torch.equal(tc, td)
+    params = P.lm_from_numpy(tree, cfg, cuda)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
+    new, _, m = STEPS.make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))(
+        params, adamw.init_state(params), batch)
+    assert np.isfinite(float(m["loss"]))
+    assert all(bool(torch.isfinite(t).all()) for t in P.tree_flatten(new))

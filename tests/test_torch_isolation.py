@@ -14,7 +14,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 # Imports every module of the port with jax, jaxlib and the reference
-# package refused by a meta-path hook; prints how many it imported.
+# package refused by a meta-path hook; prints the modules it imported.
 BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
@@ -30,7 +30,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-print(len(names))
+print(" ".join(names))
 """
 
 FORBIDDEN = [
@@ -52,14 +52,20 @@ def test_port_imports_with_jax_and_reference_blocked():
                           capture_output=True, text=True, env=env,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    # every module imported: the serving tier, obs, the launch CLIs, the
-    # architecture configs and the StableHLO lowering
-    assert int(proc.stdout.split()[-1]) >= 69
+    # every module imported (76): the serving tier, obs, the launch CLIs,
+    # the architecture configs, the StableHLO lowering and the LLM
+    # substrate
+    names = proc.stdout.split()
+    assert len(names) >= 76
+    assert {f"repro_torch.models.{m}" for m in (
+        "layers", "moe", "mamba", "xlstm", "model", "steps")} <= set(names)
 
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + [str(p.relative_to(ROOT)) for p in PORT.rglob("*.cu")]
+    + [str(p.relative_to(ROOT))
+       for p in (ROOT / "examples").glob("*_torch.py")]
     + ["chip_smoke.py"]))
 def test_source_mentions_neither_jax_nor_reference(path):
     text = (ROOT / path).read_text()

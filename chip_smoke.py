@@ -215,9 +215,33 @@ Phases, each printing JSON lines:
    host at the phase's start (threads, child processes, a fixed Python
    loop's seconds): the step and decode are host-bound.
 
+15. ``mesh`` — the mesh tooling. (a) qwen3-0.6b at its published widths
+   on a one-rank NCCL mesh (``launch.mesh.make_single_device_mesh``):
+   params and optimizer state placed as DTensors by the reference's
+   rules, one train step at B=8, S=512 through ``make_train_step(rules=
+   ...)`` against the ``rules=None`` step on the same params and batch
+   (loss and params within MESH_REL, bit-identical reported), ms a step
+   both ways, then 8 greedy decode steps on a bf16 cache of 1024 with
+   and without rules (tokens equal, caches within MESH_REL). (b) conv1d
+   at COSTMODEL_BASE with int8 gradient compression on 2 spawned gloo
+   ranks of the CPU (NCCL takes one rank a card and this machine has
+   one card, so these ranks are CPU ranks by design), mesh (2, 1), 50
+   steps, against one CPU rank: the first 10 losses within
+   TRAIN_LOSS_RTOL; the 2-rank params then served through K1 on the
+   card, its launches equal to the service's warm-up shapes and forward
+   batches, and every row it served (with a ragged batch of each
+   bucket) within 2e-4 of a plain card service. (c) ``python -m
+   repro_torch.launch.dryrun`` for qwen3-0.6b at ``train_4k`` and
+   ``decode_32k`` on a fake 16x16 group, in a child process each:
+   status ok, the model flops as ``model_flops_for``, the train flops
+   ratio within MESH_DRYRUN_RATIO, the argument and temporary bytes a
+   rank within the card's memory (a tensor left whole on every rank
+   would not fit); the three roofline terms (H100 data-sheet
+   constants), the bottleneck, the memory a rank and the seconds.
+
 Then one ``{"kernels": [...]}`` line (K1's and K2's ``launches`` add
-the replicated phase's, counted in the replicas, and K1's the cli and
-ingest phases', under ``launches_by_path``), and the last line
+the replicated phase's, counted in the replicas, and K1's the cli,
+ingest and mesh phases', under ``launches_by_path``), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is not 0 and no result line is printed; so does a machine without
 a CUDA card, or a directory without the repository's ``src/``.
@@ -2382,7 +2406,8 @@ def phase_replicated(card: str) -> dict:
           f"non-degraded rounds diverged")
     check(applied.get("kill", 0) >= 1 and applied.get("wedge", 0) >= 1
           and plan.exhausted, f"replicated chaos: faults applied "
-          f"{applied}, plan exhausted {plan.exhausted}")
+          f"{applied}, plan exhausted {plan.exhausted}; fault log "
+          f"{ft.log}; restarts {st['restart_log']}")
     check(st["restarts_recovered"] >= 2,
           f"replicated chaos: {st['restarts_recovered']} recoveries")
     check(st["recovery_s_max"] <= CHAOS_RECOVERY_S,
@@ -3322,6 +3347,272 @@ def phase_lm(card: str, device: str = "cuda", cfg=None) -> dict:
     return out
 
 
+# the mesh phase
+MESH_TRAIN = (8, 512)        # (a): a train step's batch and sequence
+MESH_DECODE = (2, 8, 1024)   # (a): decode batch, steps, cache max_seq
+MESH_REL = 1e-6              # (a): rules vs rules=None on a mesh of one
+MESH_CONV_STEPS = 50         # (b): conv1d steps on 2 gloo CPU ranks
+# (c): flops a rank over model flops a rank at train_4k: remat recomputes
+# a forward (x4/3) and the flash attention computes every key block under
+# a mask, twice model_flops_for's causal half (1.96 for qwen3-0.6b)
+MESH_DRYRUN_RATIO = (1.0, 2.0)
+MESH_DRYRUN_SHAPES = ("train_4k", "decode_32k")
+
+
+def mesh_conv_fit(mesh, steps: int) -> dict:
+    """conv1d at COSTMODEL_BASE with int8 gradient compression on the
+    CPU, on ``mesh`` (inside a group of its size when above 1): the
+    losses of every step, the params and norm stats."""
+    from repro_torch import params as P
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core import trainer as TR
+    from repro_torch.core.models import DEFAULT_HEADS
+    ds, _, _ = serve_world()
+    train, _ = ds.split(0.1)
+    t0 = time.perf_counter()
+    r = TR.TrainEngine("conv1d", COSTMODEL_BASE, DEFAULT_HEADS,
+                       device="cpu", steps=steps, batch_size=64,
+                       log_every=1, mesh_data=mesh[0], mesh_model=mesh[1],
+                       compress_grads=True).fit(train)
+    return {"losses": [loss for _, loss in r.history],
+            "params": P.to_numpy(r.params), "norm_stats": r.norm_stats,
+            "seconds": time.perf_counter() - t0}
+
+
+def mesh_rank(rank: int, n: int, store: str, out: str, steps: int) -> None:
+    """(b)'s child: one gloo rank on the CPU (the cores shared among the
+    ranks), its group's store a file; rank 0 writes the result."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    dist.init_process_group("gloo", store=dist.FileStore(store, n),
+                            rank=rank, world_size=n)
+    try:
+        res = mesh_conv_fit((n, 1), steps)
+        if rank == 0:
+            with open(out, "wb") as f:
+                pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(card: str) -> dict:
+    """The mesh tooling (see the module docstring): (a) the LM steps'
+    ``rules`` paths on a one-rank NCCL mesh at full width, (b) the
+    cost-model trainer on 2 gloo CPU ranks served through K1 on the
+    card, (c) the dry run on a fake 16x16 group."""
+    import json as _json
+    import pickle
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch import params as P
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core.service import CostModelService
+    from repro_torch.data import pipeline as PIPE
+    from repro_torch.kernels import conv1d_stack as K
+    from repro_torch.launch.mesh import make_single_device_mesh
+    from repro_torch.launch.roofline import model_flops_for
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import model as MODEL
+    from repro_torch.models import steps as STEPS
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as SH
+    t_phase = time.perf_counter()
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def tree_rel(got, want) -> float:
+        top = max(float(w.float().abs().max()) for w in P.tree_flatten(want))
+        return max(float((full(g).float() - w.float()).abs().max())
+                   for g, w in zip(P.tree_flatten(got),
+                                   P.tree_flatten(want))) / top
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, SH.DTensor) else t
+
+    # (a) the rules paths at full width on a one-rank NCCL mesh
+    mesh = make_single_device_mesh()
+    check(dist.get_backend() == "nccl" and mesh.device_type == "cuda",
+          f"(a) needs an NCCL mesh on the card: {dist.get_backend()}, "
+          f"{mesh.device_type}")
+    rules = SH.ShardingRules(mesh)
+    cfg = get_arch(LM_ARCH)
+    B, S = MESH_TRAIN
+    with torch.device("cuda"):
+        params = MODEL.init_params(torch.Generator("cuda").manual_seed(0),
+                                   cfg)
+    paxes = MODEL.param_axes(cfg)
+    dparams = SH.place_tree(params, SH.tree_shardings(rules, paxes, params))
+    check(all(isinstance(t, SH.DTensor) and
+              all(p == SH.Replicate() for p in t.placements)
+              for t in P.tree_flatten(dparams)),
+          "(a) params are replicated DTensors on a mesh of one")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             next(PIPE.synthetic_lm_batches(cfg.vocab, B, S, seed=0)).items()}
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=10)
+    state = adamw.init_state(params)
+    dstate = SH.place_tree(state, SH.tree_shardings(
+        rules, STEPS.opt_state_axes(paxes), state))
+    plain_step = STEPS.make_train_step(cfg, opt_cfg)
+    rules_step = STEPS.make_train_step(cfg, opt_cfg, rules=rules)
+    (p0, _, m0), ms0 = synced(lambda: plain_step(params, state, batch))
+    (p1, _, m1), ms1 = synced(lambda: rules_step(dparams, dstate, batch))
+    loss_rel = abs(float(m1["total_loss"]) - float(m0["total_loss"])) / \
+        abs(float(m0["total_loss"]))
+    param_rel = tree_rel(p1, p0)
+    identical = loss_rel == 0.0 and param_rel == 0.0
+    del p0, p1
+    check(loss_rel <= MESH_REL and param_rel <= MESH_REL,
+          f"(a) rules vs rules=None: loss {loss_rel}, params {param_rel}")
+    plain_ms = [synced(lambda: plain_step(params, state, batch))[1]
+                for _ in range(2)]
+    rules_ms = [synced(lambda: rules_step(dparams, dstate, batch))[1]
+                for _ in range(2)]
+    Bd, n_dec, max_seq = MESH_DECODE
+    caches = [MODEL.init_cache(cfg, Bd, max_seq, device="cuda")
+              for _ in range(2)]
+    caches[1] = SH.place_tree(caches[1], SH.tree_shardings(
+        rules, MODEL.cache_axes(cfg), caches[1]))
+    dec = (STEPS.make_decode_step(cfg),
+           STEPS.make_decode_step(cfg, rules=rules))
+    toks = [batch["tokens"][:Bd, :1]] * 2
+    dec_ms = ([], [])
+    same = True
+    for i in range(n_dec):
+        for j, (pp, step) in enumerate(((params, dec[0]),
+                                        (dparams, dec[1]))):
+            (toks[j], caches[j]), ms = synced(
+                lambda: step(pp, caches[j], toks[j], i))
+            dec_ms[j].append(ms)
+        same &= bool(torch.equal(full(toks[1]), toks[0]))
+    cache_rel = tree_rel(caches[1], caches[0])
+    check(same, "(a) decode tokens with rules differ from rules=None")
+    check(cache_rel <= MESH_REL, f"(a) decode caches {cache_rel} apart")
+    del caches, params, dparams, state, dstate
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    part_a = {"arch": LM_ARCH, "batch": B, "seq": S,
+              "loss_rel": loss_rel, "param_rel": param_rel,
+              "limit": MESH_REL, "bit_identical": identical,
+              "first_step_ms": {"plain": ms0, "rules": ms1},
+              "ms_per_step": {"plain": float(np.mean(plain_ms)),
+                              "rules": float(np.mean(rules_ms))},
+              "decode": {"batch": Bd, "steps": n_dec, "max_seq": max_seq,
+                         "tokens_equal": same, "cache_rel": cache_rel,
+                         "ms_per_token": {
+                             "plain": float(np.mean(dec_ms[0][1:])),
+                             "rules": float(np.mean(dec_ms[1][1:]))}}}
+    emit({"phase": "mesh", "case": "rules_one_rank_nccl", **part_a})
+
+    # (b) the trainer on 2 gloo CPU ranks (CPU ranks by design: NCCL
+    # takes one rank a card), its params served through K1 on the card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = os.path.join(tmp, "ranks.pkl")
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank, args=(2, os.path.join(tmp, "store"), out,
+                              MESH_CONV_STEPS), nprocs=2, join=True)
+    ranks_s = time.perf_counter() - t0
+    with open(out, "rb") as f:
+        two = pickle.load(f)
+    one = mesh_conv_fit((1, 1), MESH_CONV_STEPS)
+    check(len(two["losses"]) == len(one["losses"]) == MESH_CONV_STEPS,
+          "(b) a loss a step")
+    loss_rel = float(np.max(np.abs(np.subtract(two["losses"][:10],
+                                               one["losses"][:10]))
+                            / np.abs(one["losses"][:10])))
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"(b) 2 ranks vs 1: first 10 losses {loss_rel} apart")
+    check(two["losses"][-1] < two["losses"][0],
+          f"(b) loss {two['losses'][0]} -> {two['losses'][-1]}")
+    ds, _, graphs = serve_world()
+    K.conv_forward_fused.launches = 0
+    svc = CostModelService("conv1d", COSTMODEL_BASE, two["params"],
+                           ds.vocab, two["norm_stats"], mode="ops",
+                           max_seq=256, max_batch=64, use_kernel=True)
+    svc.warmup()
+    preds = svc.predict_all(graphs)
+    launches = K.conv_forward_fused.launches
+    owed = svc.warmup_shapes + svc.forward_batches
+    check(launches > 0 and launches == owed,
+          f"(b) K1 launches {launches} != warm-up shapes + forward "
+          f"batches {owed}")
+    check(all(np.isfinite(v).all() for v in preds.values()),
+          "(b) served predictions finite")
+    vs_plain = served_vs_plain(svc, seed=23)
+    part_b = {"ranks": 2, "backend": "gloo", "device": "cpu",
+              "why_cpu": "NCCL takes one rank a card; this machine has one",
+              "mesh": [2, 1], "compress_grads": True,
+              "steps": MESH_CONV_STEPS, "first10_loss_rel": loss_rel,
+              "limit": TRAIN_LOSS_RTOL,
+              "losses": [two["losses"][0], two["losses"][-1]],
+              "ranks_s": ranks_s, "one_rank_s": one["seconds"],
+              "k1_launches": launches, "owed": owed,
+              "served_vs_plain": vs_plain}
+    emit({"phase": "mesh", "case": "trainer_two_gloo_ranks", **part_b})
+
+    # (c) the dry run: a fake group of 256 ranks in a child process
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    dry = {}
+    for shape in MESH_DRYRUN_SHAPES:
+        dry_out = os.path.join(tmp, "dryrun")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             LM_ARCH, "--shape", shape, "--out", dry_out],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(
+                Path(__file__).resolve().parent / "src")))
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"(c) dryrun {shape}: rc {proc.returncode} "
+              f"{proc.stdout[-500:]} {proc.stderr[-1500:]}")
+        with open(os.path.join(dry_out,
+                               f"pod16x16__{LM_ARCH}__{shape}.json")) as f:
+            rec = _json.load(f)
+        check(rec["status"] == "ok", f"(c) dryrun {shape}: {rec}")
+        rl = rec["roofline"]
+        check(rl["model_flops"] == model_flops_for(cfg, SHAPES[shape]),
+              "(c) model flops")
+        ratio = rl["flops_per_chip"] / (rl["model_flops"] / rl["chips"])
+        if SHAPES[shape].kind == "train":
+            check(MESH_DRYRUN_RATIO[0] <= ratio <= MESH_DRYRUN_RATIO[1],
+                  f"(c) {shape} flops ratio {ratio}")
+        # a tensor left whole on every rank would not fit
+        rank_bytes = sum(rec["memory"].values())
+        check(rank_bytes <= card_bytes,
+              f"(c) {shape}: {rank_bytes} bytes a rank, more than the "
+              f"card's {card_bytes}")
+        dry[shape] = {"status": rec["status"], "chips": rl["chips"],
+                      "flops_ratio": ratio,
+                      "t_compute_ms": rl["t_compute"] * 1e3,
+                      "t_memory_ms": rl["t_memory"] * 1e3,
+                      "t_collective_ms": rl["t_collective"] * 1e3,
+                      "bottleneck": rl["bottleneck"],
+                      "coll_breakdown": rl["coll_breakdown"],
+                      "memory": rec["memory"], "rank_bytes": rank_bytes,
+                      "card_bytes": card_bytes,
+                      "traced_s": rec["lower_s"], "process_s": secs}
+    emit({"phase": "mesh", "case": "dryrun", "arch": LM_ARCH,
+          "mesh": "pod16x16 (fake group of 256)",
+          "constants": "H100 SXM5 data sheet: 989e12 flop/s, 3.35e12 B/s, "
+                       "450e9 B/s", "cells": dry})
+    out = {"phase": "mesh", "rules": part_a, "trainer": part_b,
+           "dryrun": dry, "launches": launches,
+           "phase_seconds": time.perf_counter() - t_phase, "card": card}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3348,6 +3639,7 @@ def main() -> int:
     cli = phase_cli(dev["nvidia_smi"])
     ingest = phase_ingest(dev["nvidia_smi"])
     phase_lm(dev["nvidia_smi"])
+    mesh = phase_mesh(dev["nvidia_smi"])
     t64, t4, t1 = (kern["timings"][b] for b in (64, 4, 1))
     l64, l1 = lstm["timings"][64], lstm["timings"][1]
     w64, w1 = tower["timings"][64], tower["timings"][1]
@@ -3356,12 +3648,13 @@ def main() -> int:
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
         "launches": serve["launches"] + compiler["launches"]
         + replicated["k1_launches"] + cli["launches"]
-        + ingest["launches"],
+        + ingest["launches"] + mesh["launches"],
         "launches_by_path": {"serve": serve["launches"],
                              "compiler": compiler["launches"],
                              "replicated": replicated["k1_launches"],
                              "cli": cli["launches"],
-                             "ingest": ingest["launches"]},
+                             "ingest": ingest["launches"],
+                             "mesh": mesh["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": t64["ms"], "plain_ms": t64["plain_ms"],
         "bound_ms": t64["bound_ms"], "bound_by": t64["bound_by"],

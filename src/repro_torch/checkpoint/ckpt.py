@@ -24,6 +24,12 @@ saved:
 Fault-tolerance contract: a save is atomic (a crash mid-save leaves no
 ``_COMMITTED`` marker and restore ignores the partial directory), and
 restore picks the newest committed step <= the requested one.
+
+Across ranks (a default process group of more than one rank): every rank
+calls :func:`save`, DTensor leaves are gathered to full tensors on every
+rank, rank 0 alone writes, and all ranks wait for its commit before
+returning. :func:`restore` with ``shardings`` places each leaf as a
+DTensor on the given mesh, each rank keeping its own shard.
 """
 from __future__ import annotations
 
@@ -36,20 +42,36 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.params import (to_numpy, tree_flatten_with_paths,
                                  tree_unflatten)
+from repro_torch.runtime import sharding as SH
 
 COMMIT_MARKER = "_COMMITTED"
+
+
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def save(directory: str, step: int, tree, *, extra: Optional[Dict] = None,
          keep: int = 3) -> str:
     """Atomic checkpoint save. Returns the committed path."""
     final = os.path.join(directory, f"step_{step:09d}")
+    flat = [(path, leaf.full_tensor() if isinstance(leaf, SH.DTensor)
+             else leaf) for path, leaf in tree_flatten_with_paths(tree)]
+    if _ranks() > 1:
+        if dist.get_rank() == 0:
+            _write(directory, final, step, flat, extra, keep)
+        dist.barrier()
+        return final
+    return _write(directory, final, step, flat, extra, keep)
+
+
+def _write(directory, final, step, flat, extra, keep) -> str:
     os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=directory)
-    flat = tree_flatten_with_paths(tree)
     manifest = {"step": step, "n_leaves": len(flat), "treedef": None,
                 "leaf_paths": [path for path, _ in flat],
                 "extra": extra or {}, "leaves": []}
@@ -90,11 +112,17 @@ def latest_steps(directory: str):
 
 
 def restore(directory: str, like, *, step: Optional[int] = None,
-            verify: bool = False, check_treedef: bool = True
-            ) -> Tuple[Any, int, Dict]:
+            shardings=None, verify: bool = False,
+            check_treedef: bool = True) -> Tuple[Any, int, Dict]:
     """Restore the newest committed checkpoint into the structure of
     ``like``; each leaf comes back as a tensor with the dtype and on the
     device of ``like``'s leaf in its place.
+
+    shardings: optional tree of ``(mesh, placements)`` pairs matching
+    ``like`` (``sharding.tree_shardings``): each leaf comes back as a
+    DTensor placed so on that mesh (elastic re-shard onto the current
+    mesh). Without it, a DTensor leaf of ``like`` gives its own mesh and
+    placements.
 
     Leaves are matched by flatten order, so structure drift must fail
     loudly rather than permute weights: the leaf count and every leaf's
@@ -127,8 +155,14 @@ def restore(directory: str, like, *, step: Optional[int] = None,
             f"checkpoint tree structure differs from the model's at leaf "
             f"{diff}: ckpt {saved_paths[diff]!r}, model {paths[diff]!r} "
             f"(pass check_treedef=False to force order-based matching)")
+    shard_leaves = SH.sharding_leaves(shardings) if shardings is not None \
+        else [None] * len(flat)
+    if len(shard_leaves) != len(flat):
+        raise ValueError(f"shardings has {len(shard_leaves)} leaves, the "
+                         f"tree {len(flat)}")
     out = []
-    for i, (meta, (key, ref)) in enumerate(zip(manifest["leaves"], flat)):
+    for i, (meta, (key, ref), shd) in enumerate(
+            zip(manifest["leaves"], flat, shard_leaves)):
         arr = np.load(os.path.join(path, meta["file"]))
         if verify and hashlib.sha1(arr.tobytes()).hexdigest() != \
                 meta["sha1"]:
@@ -136,6 +170,13 @@ def restore(directory: str, like, *, step: Optional[int] = None,
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {i} ({key}): ckpt {arr.shape} vs "
                              f"model {tuple(ref.shape)}")
-        out.append(torch.from_numpy(arr).to(device=ref.device,
-                                            dtype=ref.dtype))
+        if shd is None and isinstance(ref, SH.DTensor):
+            shd = (ref.device_mesh, tuple(ref.placements))
+        if shd is not None:
+            full = torch.from_numpy(arr).to(device=shd[0].device_type,
+                                            dtype=ref.dtype)
+            out.append(SH.place(full, shd))
+        else:
+            out.append(torch.from_numpy(arr).to(device=ref.device,
+                                                dtype=ref.dtype))
     return tree_unflatten(like, out), chosen, manifest["extra"]

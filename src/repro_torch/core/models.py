@@ -33,13 +33,14 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.params import conv_init, fc_init, lstm_init, xformer_init
+from repro_torch.runtime import sharding as SH
 
 # Canonical multi-target head set (every analyzer target, in analyzer order).
 DEFAULT_HEADS: Tuple[str, ...] = (
@@ -98,7 +99,8 @@ def fc_encode(p, ids: torch.Tensor) -> torch.Tensor:
     """Bag-of-tokens pooling + the hidden FC stack -> shared features.
     The mask is in the embedding's dtype, so bf16 params pool in bf16."""
     emb = p["emb"]
-    return fc_stack(p, _masked_mean(emb[ids], _mask(ids).to(emb.dtype)))
+    return fc_stack(p, _masked_mean(SH.gather_rows(emb, ids),
+                                    _mask(ids).to(emb.dtype)))
 
 
 def fc_apply(p, ids: torch.Tensor):
@@ -171,6 +173,13 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     activations, hence the permutes. A float32 convolution on the card
     runs in IEEE float32, forward and backward (:class:`_IEEEConv1d`);
     bf16 params keep cuDNN's bf16 path."""
+    # DTensor's convolution handler serves only its own sequence-parallel
+    # layout: on a mesh each rank convolves its own rows with the whole
+    # (gathered) weight
+    return SH.rowwise(_conv1d, x, w) + b
+
+
+def _conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     fs = w.shape[0]
     xc = F.pad(x.transpose(1, 2), ((fs - 1) // 2, fs // 2))
     wc = w.permute(2, 1, 0)
@@ -178,7 +187,7 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         out = _IEEEConv1d.apply(xc, wc)
     else:
         out = F.conv1d(xc, wc)
-    return out.transpose(1, 2) + b
+    return out.transpose(1, 2)
 
 
 def conv_encode(p, ids: torch.Tensor, *,
@@ -189,7 +198,7 @@ def conv_encode(p, ids: torch.Tensor, *,
     bucket ``pad_slack`` relies on exactly these semantics. The mask
     follows the embedding dtype, so bf16 params run a bf16 tower."""
     emb = p["emb"]
-    x = emb[ids] * _mask(ids).to(emb.dtype)[..., None]
+    x = SH.gather_rows(emb, ids) * _mask(ids).to(emb.dtype)[..., None]
     for layer in p["convs"]:
         x = torch.relu(conv1d(x, layer["w"], layer["b"]))
     x = x.amax(dim=1)                            # MaxPool1D over sequence
@@ -231,7 +240,7 @@ def lstm_encode(p, ids: torch.Tensor) -> torch.Tensor:
     initial state follow the embedding dtype, so bf16 params run a bf16
     scan, as in the reference. ``nn.LSTM`` has neither the forget bias
     nor the masked carry, hence :func:`lstm_scan`."""
-    x = p["emb"][ids]                            # (B, S, E)
+    x = SH.gather_rows(p["emb"], ids)            # (B, S, E)
     xw = x @ p["wx"] + p["b"]                    # (B, S, 4H)
     return lstm_scan(xw, _mask(ids).to(x.dtype), p["wh"])
 
@@ -265,7 +274,7 @@ def xformer_encode(p, ids: torch.Tensor) -> torch.Tensor:
     m = _mask(ids).to(emb.dtype)
     B, S = ids.shape
     d = emb.shape[1]
-    h = emb[ids] + p["pos"][:S]
+    h = SH.gather_rows(emb, ids) + p["pos"][:S]
     H = XFORMER_HEADS
     dh = d // H
     neg = ((1.0 - m)[:, None, None, :] * -1e30).to(m.dtype)
@@ -289,8 +298,60 @@ def xformer_apply(p, ids: torch.Tensor):
     return _finish(p, xformer_encode(p, ids), p.get("head"))
 
 
-# kind -> (init, apply). The reference's third element, the sharding
-# axes, belongs to the multi-card trainer, which is not ported.
+# ------------------------------------------------ logical sharding axes
+# The reference's trees of logical-axis tuples, one per param leaf (read
+# by repro_torch.runtime.sharding when the trainer runs on a mesh).
+def heads_axes(heads: Sequence[str]):
+    return {t: {"w": (None, None), "b": (None,)} for t in heads}
+
+
+def fc_axes(cfg, heads: Optional[Sequence[str]] = None):
+    n_fc = len(cfg.fc_dims) + (0 if heads else 1)
+    ax = {"emb": ("vocab", "embed"),
+          "fc": [{"w": ("ffn", None) if i else ("embed", "ffn"),
+                  "b": (None,)} for i in range(n_fc)]}
+    if heads:
+        ax["heads"] = heads_axes(heads)
+    return ax
+
+
+def lstm_axes(cfg, heads: Optional[Sequence[str]] = None):
+    ax = {"emb": ("vocab", "embed"), "wx": ("embed", "ffn"),
+          "wh": (None, "ffn"), "b": (None,)}
+    if heads:
+        ax["heads"] = heads_axes(heads)
+    else:
+        ax["head"] = {"w": (None, None), "b": (None,)}
+    return ax
+
+
+def conv_axes(cfg, heads: Optional[Sequence[str]] = None):
+    n_fc = len(cfg.fc_dims) + (0 if heads else 1)
+    ax = {"emb": ("vocab", "embed"),
+          "convs": [{"w": (None, None, "ffn"), "b": ("ffn",)}
+                    for _ in range(cfg.n_conv)],
+          "fc": [{"w": ("ffn", None), "b": (None,)}
+                 for _ in range(n_fc)]}
+    if heads:
+        ax["heads"] = heads_axes(heads)
+    return ax
+
+
+def xformer_axes(cfg, heads: Optional[Sequence[str]] = None):
+    blk = {"wqkv": ("embed", "ffn"), "wo": (None, "embed"),
+           "ln1": (None,), "ln2": (None,),
+           "w1": ("embed", "ffn"), "w2": ("ffn", "embed")}
+    ax = {"emb": ("vocab", "embed"), "pos": (None, "embed"),
+          "blocks": [blk, blk]}
+    if heads:
+        ax["heads"] = heads_axes(heads)
+    else:
+        ax["head"] = {"w": (None, None), "b": (None,)}
+    return ax
+
+
+# kind -> (init, apply); the reference's third element, the axes, is
+# get_axes(kind)
 MODELS = {"fc": (fc_init, fc_apply),
           "lstm": (lstm_init, lstm_apply),
           "conv1d": (conv_init, conv_apply),
@@ -306,6 +367,18 @@ def get_model(kind: str):
     if kind not in MODELS:
         raise KeyError(f"unknown model {kind!r}; one of {sorted(MODELS)}")
     return MODELS[kind]
+
+
+AXES = {"fc": fc_axes, "lstm": lstm_axes, "conv1d": conv_axes,
+        "xformer": xformer_axes}
+
+
+def get_axes(kind: str):
+    """``axes(cfg, heads=None)`` -> the logical-axis tree of ``kind``'s
+    params (the reference's third item of ``get_model``)."""
+    if kind not in AXES:
+        raise KeyError(f"unknown model {kind!r}; one of {sorted(AXES)}")
+    return AXES[kind]
 
 
 def get_encoder(kind: str):

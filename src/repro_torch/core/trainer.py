@@ -19,8 +19,20 @@ wrapper). The engine wires the full substrate every time:
 The step is autograd over the plain apply of :func:`~repro_torch.core.
 models.get_model` (no fused kernel has a backward), then AdamW
 (:mod:`repro_torch.optim.adamw`). The loss stays on the device between
-log points. Training runs on the card unless ``device="cpu"``; the
-multi-card mesh (``mesh_data``/``mesh_model`` > 1) is not ported yet.
+log points. Training runs on the card unless ``device="cpu"``.
+
+On a mesh (``mesh_data * mesh_model > 1``) the engine runs inside a
+default process group of exactly that many ranks (one process a rank;
+``launch.train`` spawns them). It builds the ``(data, model)`` mesh,
+places the params, optimizer state and error state as DTensors by the
+family's logical axes (:func:`~repro_torch.core.models.get_axes`, as
+the reference places them), and splits each global batch ``Shard(0)``
+over ``data``: every rank's Loader draws the same global batch and keeps
+its own rows. DTensor then computes the reference's global step (the
+gradient all-reduce and weight gathers are its collectives), so
+``compress_grads`` composes as in the reference. Rank 0 writes the
+checkpoints and every rank restores its shards; ``fit`` returns the full
+params on every rank.
 
 On the card two things make a step nondeterministic: the embedding
 gather's backward (an accumulating scatter) and some of cuDNN's
@@ -47,6 +59,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import params as P
 from repro_torch.core import models as CM
@@ -55,6 +68,7 @@ from repro_torch.data import pipeline as PIPE
 from repro_torch.ir import dataset as DS
 from repro_torch.optim import adamw, compress
 from repro_torch.runtime import fault
+from repro_torch.runtime import sharding as SH
 
 TargetSpec = Union[str, Sequence[str]]
 
@@ -129,7 +143,8 @@ class EngineConfig:
     bucket_mode: str = "batch_max"
     min_bucket: int = 32
     drop_remainder: bool = True
-    # mesh: more than one card is not ported yet (both must stay 1)
+    # mesh / sharding: a product above 1 runs in a process group of that
+    # many ranks
     mesh_data: int = 1
     mesh_model: int = 1
     # substrate
@@ -164,18 +179,28 @@ class TrainEngine:
         self.target = target
         self.ecfg = dataclasses.replace(engine or EngineConfig(),
                                         **overrides)
-        if self.ecfg.mesh_data * self.ecfg.mesh_model > 1:
-            raise NotImplementedError(
-                f"a {self.ecfg.mesh_data} x {self.ecfg.mesh_model} mesh "
-                f"needs the multi-card trainer, which is not ported yet "
-                f"(ROADMAP M9b); the port trains on one device")
+        n_mesh = self.ecfg.mesh_data * self.ecfg.mesh_model
+        if n_mesh > 1:
+            world = dist.get_world_size() if dist.is_initialized() else None
+            if world != n_mesh:
+                raise ValueError(
+                    f"a {self.ecfg.mesh_data} x {self.ecfg.mesh_model} mesh "
+                    f"has {n_mesh} places; TrainEngine runs it inside a "
+                    f"process group of {n_mesh} ranks, and the group here "
+                    f"has {world if world else 'no'} ranks "
+                    f"(launch.train --mesh-data/--mesh-model spawns them)")
         self.device = torch.device(self.ecfg.device or "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"TrainEngine(device={self.ecfg.device!r}) needs a CUDA "
                 f"card and torch.cuda.is_available() is False; pass "
                 f"device='cpu' to train on the CPU")
+        if n_mesh > 1 and self.device.type == "cuda" and \
+                self.device.index is None:
+            self.device = torch.device(
+                "cuda", dist.get_rank() % torch.cuda.device_count())
         self.init_fn, self.apply_fn = CM.get_model(kind)
+        self.axes_fn = CM.get_axes(kind)
 
     # ------------------------------------------------------------- pipeline
     def bucket_assignments(self, train: DS.CostDataset
@@ -225,6 +250,7 @@ class TrainEngine:
             y = y.astype(np.float32)
         params = P.from_numpy(params, dev)
         loader = self.make_loader(train, y)
+        rules = self.mesh_rules()
 
         opt_cfg = adamw.AdamWConfig(lr=e.lr, total_steps=e.steps,
                                     warmup_steps=min(50, e.steps // 10),
@@ -235,12 +261,19 @@ class TrainEngine:
 
         def train_step(state, ids, yy):
             params, opt_state, err = state
-            loss, grads = value_and_grad(loss_fn, params, ids, yy)
-            with torch.no_grad():
-                if err is not None:
-                    grads, err = compress.compress_grads(grads, err)
-                params, opt_state, _ = adamw.apply_updates(
-                    params, grads, opt_state, opt_cfg)
+            batch = SH.place_batch(rules, {"ids": ids, "y": yy})
+            with SH.step_scope(rules):
+                loss, grads = value_and_grad(loss_fn, params, batch["ids"],
+                                             batch["y"])
+                if rules is not None:
+                    grads = P.tree_unflatten(grads, SH.like(
+                        P.tree_flatten(grads), P.tree_flatten(params)))
+                    loss = loss.full_tensor()
+                with torch.no_grad():
+                    if err is not None:
+                        grads, err = compress.compress_grads(grads, err)
+                    params, opt_state, _ = adamw.apply_updates(
+                        params, grads, opt_state, opt_cfg)
             return (params, opt_state, err), loss
 
         sup = fault.TrainSupervisor(e.ckpt_dir, save_every=e.save_every,
@@ -248,8 +281,13 @@ class TrainEngine:
         if e.install_sigterm:
             sup.install_signal_handler()
         state = (params, adamw.init_state(params), err0)
+        shardings = None
+        if rules is not None:
+            shardings = SH.tree_shardings(
+                rules, self.state_axes(e.compress_grads), state)
+            state = SH.place_tree(state, shardings)
         state, start, extra = sup.try_restore(
-            state, check_treedef=e.check_treedef)
+            state, shardings=shardings, check_treedef=e.check_treedef)
         if start and "loader" in extra:
             loader.state = PIPE.LoaderState(**extra["loader"])
 
@@ -292,8 +330,30 @@ class TrainEngine:
                  "steps": float(steps_run),
                  "wall_time_s": wall,
                  "steps_per_s": steps_run / max(wall, 1e-9)}
-        return TrainResult(params=state[0], stats=stats, history=history,
+        params = state[0]
+        if rules is not None:
+            params = P.tree_map(lambda x: x.full_tensor(), params)
+        return TrainResult(params=params, stats=stats, history=history,
                            norm_stats=norm_stats, heads=self.heads)
+
+    # ----------------------------------------------------------------- mesh
+    def mesh_rules(self) -> Optional[SH.ShardingRules]:
+        """The ``(data, model)`` mesh's rules when ``mesh_data *
+        mesh_model > 1`` (the batch split over ``data`` only), else
+        None."""
+        e = self.ecfg
+        if e.mesh_data * e.mesh_model == 1:
+            return None
+        from repro_torch.launch.mesh import make_debug_mesh
+        mesh = make_debug_mesh(e.mesh_data, e.mesh_model)
+        return SH.ShardingRules(mesh, overrides={"batch": ("data",)})
+
+    def state_axes(self, compressed: bool):
+        """Logical axes of the train state ``(params, opt_state, err)``."""
+        axes = self.axes_fn(self.cfg, heads=self.heads) if self.heads \
+            else self.axes_fn(self.cfg)
+        return (axes, {"m": axes, "v": axes, "count": ()},
+                axes if compressed else None)
 
 
 def train_model(kind: str, cfg, train: DS.CostDataset, target: TargetSpec,

@@ -12,17 +12,29 @@ layout, so either package's CLI resumes or evaluates the other's run.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --model xformer --target all --steps 100 --ckpt-dir /tmp/ck
 
-Training runs on the card unless ``--device cpu``. The mesh flags are
-kept for the reference's command lines: above 1 they raise, as the
-multi-card trainer is not ported.
+Training runs on the card unless ``--device cpu``. With
+``--mesh-data``/``--mesh-model`` whose product n is above 1 and no
+process group yet, the CLI spawns n ranks (``torch.multiprocessing``,
+their group's store a file in a temporary directory): NCCL ranks, one a
+card, on the card (it raises naming the card count when there are fewer
+cards than ranks), gloo ranks with ``--device cpu``. Every rank trains
+its part of the mesh; rank 0 prints the reference's lines and its
+metrics are ``main``'s return value.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --mesh-data 2 --steps 50 --n-graphs 300 --ckpt-dir /tmp/ckm
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
+import sys
+import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import params as P
 from repro_torch.configs.costmodel import (COSTMODEL_100M, COSTMODEL_BASE,
@@ -86,6 +98,10 @@ def main(argv=None):
                     help="torch device to train and evaluate on "
                          "(default: the CUDA card; 'cpu' off the card)")
     args = ap.parse_args(argv)
+    n_ranks = args.mesh_data * args.mesh_model
+    if n_ranks > 1 and not dist.is_initialized():
+        return spawn_ranks(n_ranks, args,
+                           list(sys.argv[1:] if argv is None else argv))
 
     cfg = PRESETS[args.preset]
     ds = build_or_load_dataset(args, cfg)
@@ -150,6 +166,52 @@ def main(argv=None):
         print("eval:",
               json.dumps({k: round(v, 3) for k, v in metrics.items()}))
     return metrics
+
+
+def spawn_ranks(n: int, args, argv):
+    """Run ``main(argv)`` in n spawned ranks of one process group and
+    return rank 0's metrics."""
+    dev = torch.device(args.device or "cuda")
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if cards < n:
+            raise RuntimeError(
+                f"--mesh-data {args.mesh_data} --mesh-model "
+                f"{args.mesh_model} needs {n} ranks, one a CUDA card, and "
+                f"there are {cards} cards; pass --device cpu for gloo "
+                f"ranks on the CPU")
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        mp.spawn(_rank_main, args=(n, tmp, argv, dev.type), nprocs=n,
+                 join=True)
+        with open(os.path.join(tmp, "metrics.json")) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank_main(rank: int, n: int, tmp: str, argv, dev_type: str):
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+        backend = "nccl"
+    else:
+        # the machine's cores shared among the ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+        backend = "gloo"
+    dist.init_process_group(
+        backend, store=dist.FileStore(os.path.join(tmp, "store"), n),
+        rank=rank, world_size=n)
+    try:
+        if rank:
+            sys.stdout = open(os.devnull, "w")
+        metrics = main(argv)
+        if rank == 0:
+            with open(os.path.join(tmp, "metrics.json"), "w") as f:
+                json.dump(metrics, f)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -5,8 +5,12 @@ Conventions
 -----------
 * Params are nested dicts of tensors; every init function has a matching
   ``*_axes`` function returning the same tree of logical-axis tuples
-  (read by the sharding rules, which are not ported yet: every apply
-  takes ``rules`` and raises unless it is ``None``).
+  (read by :mod:`repro_torch.runtime.sharding`). With ``rules``, the
+  params and inputs are DTensors placed by those axes, and every apply
+  redistributes its activations where the reference constrains them
+  (``rules.constrain``); ops with no usable DTensor sharding strategy
+  run on each rank's local tensors (``sharding.replicated``,
+  ``sharding.rowwise``).
 * Params are stored fp32 (master weights); forward casts to ``cdt``
   (compute dtype, bf16 by default) — mixed-precision training.
 * Inits draw from an explicit ``torch.Generator`` and create tensors on
@@ -24,11 +28,14 @@ Conventions
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.runtime import sharding as SH
 
 Params = Dict[str, Any]
 
@@ -36,15 +43,6 @@ DEFAULT_KBLK = 1024   # flash-attention key-block size
 
 
 # ----------------------------------------------------------------- utilities
-def single_device(rules) -> None:
-    """The port runs on one device: sharding rules need
-    runtime/sharding.py, which ROADMAP M9b ports."""
-    if rules is not None:
-        raise NotImplementedError(
-            "sharding rules need runtime/sharding.py, which is not ported "
-            "yet (ROADMAP M9b); pass rules=None to run on one device")
-
-
 def _init(generator, shape, scale=None):
     fan_in = shape[0] if len(shape) > 1 else max(shape[0], 1)
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
@@ -117,8 +115,15 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0,
     Never builds an (Sq, Sk) buffer larger than (Sq, kblk). The last block
     holds the Sk % kblk keys left over (the reference pads it with keys
     that its mask then drops: the same sums).
+
+    With DTensors, each rank attends with its own part of q (its batch,
+    heads and query positions; ``sharding.local_attention``): that is
+    the split the reference's logits constraint asks for, and the
+    per-block products then run on local tensors.
     """
-    single_device(rules)
+    if isinstance(q, SH.DTensor):
+        return SH.local_attention(functools.partial(
+            flash_attention, causal=causal, kblk=kblk), q, k, v, q_offset)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     kblk = min(kblk, Sk)
@@ -130,6 +135,8 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0,
     acc = torch.zeros((B, Sq, H, D), device=q.device)
     for start in range(0, Sk, kblk):
         kc, vc = k[:, start:start + kblk], v[:, start:start + kblk]
+        # (the reference's logits constraint: local_attention gives q's
+        # split, above)
         logits = torch.einsum("bqhd,bkhd->bhqk", q32, kc.float()) * scale
         if causal:
             k_pos = start + torch.arange(kc.shape[1], device=q.device)
@@ -147,9 +154,30 @@ def flash_attention(q, k, v, *, causal: bool, q_offset=0,
     return out.to(q.dtype)
 
 
+def _pad_heads(t, n):
+    """(B, S, H, D) -> (B, S, H + n, D), the new heads zero."""
+    if n == 0:
+        return t
+    return torch.cat([t, torch.zeros_like(t[:, :, :1]).expand(
+        *t.shape[:2], n, t.shape[3])], dim=2)
+
+
 def _proj(x, w):
     """(B, S, d) x (d, H, K) -> (B, S, H, K)."""
+    return SH.by_token(_bsd_dhk, x, w)
+
+
+def _bsd_dhk(x, w):
     return torch.einsum("bsd,dhk->bshk", x, w)
+
+
+def out_proj(o, w):
+    """(B, S, H, K) x (H, K, d) -> (B, S, d)."""
+    return SH.by_token(_bshk_hkd, o, w)
+
+
+def _bshk_hkd(o, w):
+    return torch.einsum("bshk,hkd->bsd", o, w)
 
 
 def attention_apply(p, x, cfg, *, positions, rules=None,
@@ -157,11 +185,11 @@ def attention_apply(p, x, cfg, *, positions, rules=None,
                     cache_index=None):
     """GQA attention. If cache is given, single-token decode; else full seq.
 
-    cache: {"k": (B, n_kv, S_cache, D), "v": same}. Decode writes this
-    step's k and v into the cache in place at ``cache_index`` (an int)
-    and returns the same tensors. Returns (out, new_cache).
+    cache: {"k": (B, n_kv, S_cache, D), "v": same}, sharded on
+    cache_seq. Decode writes this step's k and v into the cache in place
+    at ``cache_index`` (an int) and returns the same tensors. Returns
+    (out, new_cache).
     """
-    single_device(rules)
     B, S, d = x.shape
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     G = nq // nkv
@@ -180,19 +208,45 @@ def attention_apply(p, x, cfg, *, positions, rules=None,
     k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        # train/prefill: repeat kv to full q heads, flash attention
+        # train/prefill: repeat kv to full q heads, flash attention.
+        # Head (tensor) parallelism when n_heads divides the model axis;
+        # with rules.pad_attention_heads, odd head counts are zero-padded
+        # up to the next multiple of the model axis (padded heads are
+        # sliced away before the output projection: the same sums);
+        # otherwise query-sequence context parallelism picks up that axis.
         kf = torch.repeat_interleave(k, G, dim=2)
         vf = torch.repeat_interleave(v, G, dim=2)
-        out = flash_attention(q, kf, vf, causal=True)
+        n_eff = nq
+        if rules is not None:
+            heads_tp = rules.divisible(nq, "model")
+            if not heads_tp and rules.pad_attention_heads:
+                m_sz = rules.axis_sizes.get("model", 1)
+                n_eff = -(-nq // m_sz) * m_sz
+                q, kf, vf = (_pad_heads(t, n_eff - nq) for t in (q, kf, vf))
+                heads_tp = True
+            qs = None if heads_tp else "qseq"
+            q = rules.constrain(q, "batch", qs, "heads", None)
+            kf = rules.constrain(kf, "batch", None, "heads", None)
+            vf = rules.constrain(vf, "batch", None, "heads", None)
+        out = flash_attention(q, kf, vf, causal=True, rules=rules)
+        if n_eff != nq:
+            out = out[:, :, :nq]
         new_cache = None
     else:
         # decode: write this step into the cache, grouped attention
         kc, vc = cache["k"], cache["v"]  # (B, nkv, Sc, D)
-        kc[:, :, cache_index:cache_index + S] = \
-            k.transpose(1, 2).to(kc.dtype)
-        vc[:, :, cache_index:cache_index + S] = \
-            v.transpose(1, 2).to(vc.dtype)
+        SH.write_slice(kc, k.transpose(1, 2).to(kc.dtype), 2, cache_index)
+        SH.write_slice(vc, v.transpose(1, 2).to(vc.dtype), 2, cache_index)
+        if rules is not None:
+            kc = rules.constrain(kc, "batch", "kv_heads", "cache_seq", None)
+            vc = rules.constrain(vc, "batch", "kv_heads", "cache_seq", None)
         Sc = kc.shape[2]
+        if rules is not None:
+            # q's heads split as the kv heads do, so the (nkv, G) view
+            # below splits evenly (DTensor reshards no view implicitly)
+            kvs = "kv_heads" if rules.spec(("kv_heads",), (nkv,))[0] \
+                else None
+            q = rules.constrain(q, "batch", None, kvs, None)
         # -> B,nkv,G,S,D
         qg = q.reshape(B, S, nkv, G, hd).permute(0, 2, 3, 1, 4)
         qg = qg.reshape(B, nkv, G * S, hd)
@@ -201,13 +255,16 @@ def attention_apply(p, x, cfg, *, positions, rules=None,
         logits = logits / math.sqrt(hd)
         valid = torch.arange(Sc, device=x.device) <= cache_index
         logits = torch.where(valid[None, None, None], logits, -1e30)
+        if rules is not None:
+            logits = rules.constrain(logits, "batch", "kv_heads", None,
+                                     "cache_seq")
         w = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhgs,bhsk->bhgk", w.to(cdt), vc.to(cdt))
         out = out.reshape(B, nkv, G, S, hd).permute(0, 3, 1, 2, 4)
         out = out.reshape(B, S, nq, hd)
         new_cache = {"k": kc, "v": vc}
 
-    y = torch.einsum("bshk,hkd->bsd", out.to(cdt), p["wo"].to(cdt))
+    y = out_proj(out.to(cdt), p["wo"].to(cdt))
     return y, new_cache
 
 
@@ -228,14 +285,17 @@ def ffn_axes(gated=True):
 
 
 def ffn_apply(p, x, *, rules=None, cdt=torch.bfloat16, gated=True):
-    single_device(rules)
     xc = x.to(cdt)
-    up = xc @ p["w_up"].to(cdt)
+    up = SH.by_token(torch.matmul, xc, p["w_up"].to(cdt))
     if gated:
-        gate = F.silu(xc @ p["w_gate"].to(cdt))
+        gate = F.silu(SH.by_token(torch.matmul, xc, p["w_gate"].to(cdt)))
         h = gate * up
     else:
         h = F.gelu(up, approximate="tanh")
+    if rules is not None:
+        # ffn (tensor) parallelism owns the model axis here; the sequence
+        # dim stays unsharded inside the FFN even under context parallelism
+        h = rules.constrain(h, "batch", None, "ffn")
     return h @ p["w_down"].to(cdt)
 
 
@@ -252,7 +312,7 @@ def embedding_axes():
 def embed_apply(p, ids, cdt=torch.bfloat16):
     # gather, then cast: the rows the reference's cast table gives,
     # without casting the whole table
-    return p["table"][ids].to(cdt)
+    return SH.gather_rows(p["table"], ids).to(cdt)
 
 
 def unembed_apply(p, x, cdt=torch.bfloat16):

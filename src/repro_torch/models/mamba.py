@@ -17,7 +17,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _init, single_device
+from repro_torch.models.layers import _init
+from repro_torch.runtime import sharding as SH
 
 MAMBA_CHUNK = 256
 
@@ -62,9 +63,10 @@ def _causal_conv(x, w, b, state: Optional[torch.Tensor] = None):
     state: (B, k-1, di)."""
     k = w.shape[0]
     if state is None:
-        xp = F.pad(x, (0, 0, k - 1, 0))
-    else:
-        xp = torch.cat([state.to(x.dtype), x], dim=1)
+        # zeros joined on, not padded: padding a DTensor fails in torch 2.11
+        state = torch.zeros_like(x[:, :1]).expand(x.shape[0], k - 1,
+                                                  x.shape[2])
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
     out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
     new_state = xp[:, -(k - 1):] if k > 1 else None
     return out + b, new_state
@@ -74,10 +76,13 @@ def _ssm_params(p, x, cfg, cdt):
     """x: (B, S, di) -> dt (B,S,di), B_ (B,S,N), C (B,S,N), A (di,N)."""
     h = cfg.hybrid
     dt_rank = p["dt_proj"].shape[0]
-    proj = x @ p["x_proj"].to(cdt)
+    # both products' partial sums reduced at once: torch 2.11's DTensor
+    # cannot add a split bias to a pending sum
+    proj = SH.settle(x @ p["x_proj"].to(cdt))
     dt_in, Bm, Cm = torch.split(proj, [dt_rank, h.d_state, h.d_state],
                                 dim=-1)
-    dt = F.softplus((dt_in @ p["dt_proj"].to(cdt)).float() + p["dt_bias"])
+    dt = F.softplus(SH.settle(dt_in @ p["dt_proj"].to(cdt)).float()
+                    + p["dt_bias"])
     A = -torch.exp(p["A_log"])  # (di, N)
     return dt, Bm.float(), Cm.float(), A
 
@@ -100,14 +105,23 @@ def mamba_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16,
                 state: Optional[Dict] = None):
     """x: (B, S, D). state (decode): {"conv": (B,k-1,di), "ssm": (B,di,N)}.
 
-    Returns (out, new_state)."""
-    single_device(rules)
-    B, S, D = x.shape
-    h = cfg.hybrid
-    di = h.expand * D
+    Returns (out, new_state). The sequence stays whole inside (a
+    sequence-split DTensor is joined first): the scan runs along it."""
+    x = SH.join_tokens(x)
+    if rules is not None:
+        # every param but the two projections whole on each rank, as
+        # GSPMD gathers them for the activations' split: DTensor would
+        # instead split the scan's (B, c, di, N) tensors on di to meet
+        # the params' split, gathering their batch whole in the backward
+        p = {k: v if k in ("in_proj", "out_proj") else
+             rules.constrain(v, *(None,) * v.ndim) for k, v in p.items()}
+    S = x.shape[1]
     xc = x.to(cdt)
     xz = xc @ p["in_proj"].to(cdt)
     xin, z = torch.chunk(xz, 2, dim=-1)
+    if rules is not None:
+        xin = rules.constrain(xin, "batch", None, "ffn")
+        z = rules.constrain(z, "batch", None, "ffn")
 
     if state is not None:
         xin, conv_state = _causal_conv(xin, p["conv_w"].to(cdt),
@@ -132,7 +146,7 @@ def mamba_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16,
     x32 = xin.float()
 
     chunk = min(MAMBA_CHUNK, S)
-    s0 = torch.zeros((B, di, h.d_state), device=x.device)
+    s0 = None           # the state before the first chunk is zero
     ys = []
     for start in range(0, S, chunk):
         sl = slice(start, start + chunk)
@@ -140,12 +154,14 @@ def mamba_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16,
         dA = torch.exp(dt_[..., None] * A)                     # B,c,di,N
         dBx = dt_[..., None] * B_[:, :, None, :] * xc_[..., None]
         aA, aB = _scan(dA, dBx)
-        s = aA * s0[:, None] + aB                              # B,c,di,N
+        s = aB if s0 is None else aA * s0[:, None] + aB        # B,c,di,N
         ys.append((s * C_[:, :, None, :]).sum(-1))             # B,c,di
         s0 = s[:, -1]
     y = torch.cat(ys, dim=1)
     y = y + p["D"] * x32
     y = y.to(cdt) * F.silu(z)
+    if rules is not None:
+        y = rules.constrain(y, "batch", None, "ffn")
     out = y @ p["out_proj"].to(cdt)
     return out, None
 

@@ -20,6 +20,7 @@ without autograd and updates the cache it is given in place.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -30,6 +31,7 @@ from repro_torch.models import mamba as MB
 from repro_torch.models import moe as M
 from repro_torch.models import xlstm as X
 from repro_torch.params import tree_flatten, tree_map
+from repro_torch.runtime import sharding as SH
 
 VOCAB_PAD = 128
 
@@ -54,6 +56,25 @@ def _unstack(tree):
     return tree.unbind(0)
 
 
+def _reducing_grads(layer):
+    """A layer's params as views made here, each DTensor's gradient
+    reduced to its own placements when the layer's backward gives it: a
+    pending sum is whole on every rank, and held to the step's end it
+    would cost a whole gradient a layer (GSPMD reduce-scatters each
+    layer's gradient as it goes). Made just before the layer runs:
+    autograd runs a node only after every node made later."""
+    return tree_map(_reducing_grad, layer)
+
+
+def _reducing_grad(t):
+    if not (isinstance(t, SH.DTensor) and t.requires_grad):
+        return t
+    v = t.view_as(t)
+    v.register_hook(functools.partial(SH.reduce_to, t.device_mesh,
+                                      t.placements))
+    return v
+
+
 def _stack_init(n, fn):
     return _stack([fn() for _ in range(n)])
 
@@ -76,6 +97,7 @@ def _run_stack(body, h, stack, remat):
     stack; returns (h, sum of aux)."""
     auxs = []
     for lp in _unstack(stack):
+        lp = _reducing_grads(lp)
         if remat:
             h, aux = checkpoint(body, h, lp, use_reentrant=False)
         else:
@@ -104,17 +126,19 @@ def _layer_axes(cfg, gated=True):
     return a
 
 
-def _layer_apply(p, h, cfg, *, positions, cdt, cache=None, cache_index=None):
+def _layer_apply(p, h, cfg, *, positions, rules, cdt, cache=None,
+                 cache_index=None):
     attn_in = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     a, new_cache = L.attention_apply(p["attn"], attn_in, cfg,
-                                     positions=positions, cdt=cdt,
-                                     cache=cache, cache_index=cache_index)
+                                     positions=positions, rules=rules,
+                                     cdt=cdt, cache=cache,
+                                     cache_index=cache_index)
     h = h + a.to(h.dtype)
     ffn_in = L.rms_norm(h, p["ln2"], cfg.norm_eps)
     if "moe" in p:
-        f, aux = M.moe_apply(p["moe"], ffn_in, cfg, cdt=cdt)
+        f, aux = M.moe_apply(p["moe"], ffn_in, cfg, rules=rules, cdt=cdt)
     else:
-        f = L.ffn_apply(p["ffn"], ffn_in, cdt=cdt)
+        f = L.ffn_apply(p["ffn"], ffn_in, rules=rules, cdt=cdt)
         aux = torch.zeros((), device=h.device)
     return h + f.to(h.dtype), new_cache, aux
 
@@ -146,7 +170,7 @@ def _period_axes(cfg):
     }
 
 
-def _period_apply(p, h, cfg, *, positions, cdt, caches=None,
+def _period_apply(p, h, cfg, *, positions, rules, cdt, caches=None,
                   cache_index=None):
     """One period: slots 0..period-1; attention at hb.attn_index. With
     ``caches`` (decode), the attention's KV cache and each mamba layer's
@@ -161,23 +185,24 @@ def _period_apply(p, h, cfg, *, positions, cdt, caches=None,
         if slot == hb.attn_index:
             cache = caches["attn"] if caches is not None else None
             a, _ = L.attention_apply(
-                p["attn"], mix_in, cfg, positions=positions, cdt=cdt,
-                cache=cache, cache_index=cache_index)
+                p["attn"], mix_in, cfg, positions=positions, rules=rules,
+                cdt=cdt, cache=cache, cache_index=cache_index)
         else:
             st = mamba_st[mamba_i] if caches is not None else None
             a, new_st = MB.mamba_apply(mamba_p[mamba_i], mix_in, cfg,
-                                       cdt=cdt, state=st)
+                                       rules=rules, cdt=cdt, state=st)
             if caches is not None:
                 _store(st, new_st)
             mamba_i += 1
         h = h + a.to(h.dtype)
         ffn_in = L.rms_norm(h, p["ln2"][slot], cfg.norm_eps)
         if slot % cfg.moe.moe_every == 0:
-            f, aux = M.moe_apply(moe_p[moe_i], ffn_in, cfg, cdt=cdt)
+            f, aux = M.moe_apply(moe_p[moe_i], ffn_in, cfg, rules=rules,
+                                 cdt=cdt)
             aux_total = aux_total + aux
             moe_i += 1
         else:
-            f = L.ffn_apply(ffn_p[ffn_i], ffn_in, cdt=cdt)
+            f = L.ffn_apply(ffn_p[ffn_i], ffn_in, rules=rules, cdt=cdt)
             ffn_i += 1
         h = h + f.to(h.dtype)
     return h, caches, aux_total
@@ -191,17 +216,17 @@ def _enc_layer_init(generator, cfg):
             "ln2": torch.ones((cfg.d_model,))}
 
 
-def _enc_layer_apply(p, h, cfg, *, cdt):
+def _enc_layer_apply(p, h, cfg, *, rules, cdt):
     """Bidirectional attention (no causal mask, no rope — learned pos)."""
     x = L.rms_norm(h, p["ln1"], cfg.norm_eps).to(cdt)
     q = L._proj(x, p["attn"]["wq"].to(cdt))
     k = L._proj(x, p["attn"]["wk"].to(cdt))
     v = L._proj(x, p["attn"]["wv"].to(cdt))
-    o = L.flash_attention(q, k, v, causal=False)
-    a = torch.einsum("bshk,hkd->bsd", o, p["attn"]["wo"].to(cdt))
+    o = L.flash_attention(q, k, v, causal=False, rules=rules)
+    a = L.out_proj(o, p["attn"]["wo"].to(cdt))
     h = h + a.to(h.dtype)
     f = L.ffn_apply(p["ffn"], L.rms_norm(h, p["ln2"], cfg.norm_eps),
-                    cdt=cdt, gated=False)
+                    rules=rules, cdt=cdt, gated=False)
     return h + f.to(h.dtype)
 
 
@@ -214,25 +239,26 @@ def _dec_layer_init(generator, cfg):
             "ln2": torch.ones((cfg.d_model,))}
 
 
-def _cross_attend(p, x, enc_kv, cfg, cdt):
+def _cross_attend(p, x, enc_kv, cfg, rules, cdt):
     q = L._proj(x.to(cdt), p["wq"].to(cdt))
     o = L.flash_attention(q, enc_kv["k"].to(cdt), enc_kv["v"].to(cdt),
-                          causal=False)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(cdt))
+                          causal=False, rules=rules)
+    return L.out_proj(o, p["wo"].to(cdt))
 
 
-def _dec_layer_apply(p, h, cfg, *, positions, enc_kv, cdt, cache=None,
-                     cache_index=None):
+def _dec_layer_apply(p, h, cfg, *, positions, enc_kv, rules, cdt,
+                     cache=None, cache_index=None):
     a_in = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     a, new_cache = L.attention_apply(p["attn"], a_in, cfg,
-                                     positions=positions, cdt=cdt,
-                                     cache=cache, cache_index=cache_index)
+                                     positions=positions, rules=rules,
+                                     cdt=cdt, cache=cache,
+                                     cache_index=cache_index)
     h = h + a.to(h.dtype)
     x_in = L.rms_norm(h, p["lnx"], cfg.norm_eps)
-    xa = _cross_attend(p["xattn"], x_in, enc_kv, cfg, cdt)
+    xa = _cross_attend(p["xattn"], x_in, enc_kv, cfg, rules, cdt)
     h = h + xa.to(h.dtype)
     f = L.ffn_apply(p["ffn"], L.rms_norm(h, p["ln2"], cfg.norm_eps),
-                    cdt=cdt, gated=False)
+                    rules=rules, cdt=cdt, gated=False)
     return h + f.to(h.dtype), new_cache
 
 
@@ -301,21 +327,22 @@ def param_axes(cfg) -> Dict[str, Any]:
     return a
 
 
-def _embed_tokens(p, cfg, batch, cdt):
+def _embed_tokens(p, cfg, batch, cdt, rules):
     h = L.embed_apply(p["embed"], batch["tokens"], cdt=cdt)
     if cfg.frontend == "vision" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(cdt)
         P = pe.shape[1]
         h = torch.cat([pe, h[:, P:]], dim=1)
+    if rules is not None:
+        h = rules.constrain(h, "batch", "qseq", "embed")
     return h
 
 
 def _run_encoder(p, cfg, frame_embeds, rules, cdt):
-    L.single_device(rules)
     h = frame_embeds.to(cdt) + p["enc_pos"].to(cdt)
 
     def body(hh, lp):
-        return _enc_layer_apply(lp, hh, cfg, cdt=cdt), \
+        return _enc_layer_apply(lp, hh, cfg, rules=rules, cdt=cdt), \
             torch.zeros((), device=hh.device)
 
     h, _ = _run_stack(body, h, p["enc_layers"], remat=True)
@@ -334,51 +361,57 @@ def forward(params, cfg, batch, *, rules=None, cdt=torch.bfloat16,
             remat=True, unembed=True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/prefill forward. Returns (logits, aux_loss) — or, with
     unembed=False, (final hidden states, aux_loss) so the caller can fuse
-    the unembedding into a chunked loss (never building full logits)."""
-    L.single_device(rules)
-    B, S = batch["tokens"].shape
+    the unembedding into a chunked loss (never building full logits).
+    With ``rules``, params and batch are DTensors, and the caller runs
+    this inside ``sharding.step_scope(rules)`` (the steps do)."""
+    S = batch["tokens"].shape[1]
     dev = batch["tokens"].device
-    positions = torch.arange(S, device=dev).expand(B, S)
+    # (1, S): the rotary tables broadcast over the batch (a (B, S) table
+    # would be built whole on every rank of a mesh)
+    positions = torch.arange(S, device=dev)[None]
     fam = cfg.family
 
     if fam == "audio":
-        enc_out = _run_encoder(params, cfg, batch["frame_embeds"], None, cdt)
+        enc_out = _run_encoder(params, cfg, batch["frame_embeds"], rules,
+                               cdt)
         h = L.embed_apply(params["embed"], batch["tokens"], cdt=cdt)
         h = h + params["dec_pos"][:S].to(cdt)
 
         def body(hh, lp):
             ekv = _enc_kv(lp, enc_out, cfg, cdt)
             out, _ = _dec_layer_apply(lp, hh, cfg, positions=positions,
-                                      enc_kv=ekv, cdt=cdt)
+                                      enc_kv=ekv, rules=rules, cdt=cdt)
             return out, torch.zeros((), device=dev)
 
         h, _ = _run_stack(body, h, params["dec_layers"], remat)
         aux = torch.zeros((), device=dev)
     elif fam == "ssm":
-        h = _embed_tokens(params, cfg, batch, cdt)
+        h = _embed_tokens(params, cfg, batch, cdt, rules)
 
         def body(hh, pp):
-            hh, _ = X.mlstm_block_apply(pp["mlstm"], hh, cfg, cdt=cdt)
-            hh, _ = X.slstm_block_apply(pp["slstm"], hh, cfg, cdt=cdt)
+            hh, _ = X.mlstm_block_apply(pp["mlstm"], hh, cfg, rules=rules,
+                                        cdt=cdt)
+            hh, _ = X.slstm_block_apply(pp["slstm"], hh, cfg, rules=rules,
+                                        cdt=cdt)
             return hh, torch.zeros((), device=dev)
 
         h, _ = _run_stack(body, h, params["pairs"], remat)
         aux = torch.zeros((), device=dev)
     elif fam == "hybrid":
-        h = _embed_tokens(params, cfg, batch, cdt)
+        h = _embed_tokens(params, cfg, batch, cdt, rules)
 
         def body(hh, pp):
             out, _, aux_p = _period_apply(pp, hh, cfg, positions=positions,
-                                          cdt=cdt)
+                                          rules=rules, cdt=cdt)
             return out, aux_p
 
         h, aux = _run_stack(body, h, params["periods"], remat)
     else:
-        h = _embed_tokens(params, cfg, batch, cdt)
+        h = _embed_tokens(params, cfg, batch, cdt, rules)
 
         def body(hh, lp):
             out, _, aux_l = _layer_apply(lp, hh, cfg, positions=positions,
-                                         cdt=cdt)
+                                         rules=rules, cdt=cdt)
             return out, aux_l
 
         h, aux = _run_stack(body, h, params["layers"], remat)
@@ -386,9 +419,30 @@ def forward(params, cfg, batch, *, rules=None, cdt=torch.bfloat16,
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     if not unembed:
         return h, aux
-    logits = torch.einsum("bsd,vd->bsv", h.to(cdt),
-                          unembed_table(params, cfg).to(cdt))
+    logits = unembed_logits(h.to(cdt), unembed_table(params, cfg).to(cdt),
+                            rules, ("batch", "qseq", "vocab"))
     return logits, aux
+
+
+def unembed_logits(h, table, rules, axes):
+    """(B, S, d) x (V, d) -> logits (B, S, V), constrained to ``axes``.
+
+    With rules, the table is first placed as the constrained logits need
+    it (its vocab dim split as theirs, its d_model dim whole), so the
+    product gives those placements directly. GSPMD moves the table there
+    on its own; DTensor propagates no constraint backwards and would
+    otherwise reshard the (much larger) logits."""
+    if rules is not None:
+        spec = rules.spec(axes, (h.shape[0], h.shape[1], table.shape[0]))
+        table = rules.constrain(table, axes[2] if spec[2] else None, None)
+    logits = SH.by_token(_bsd_vd, h, table)
+    if rules is not None:
+        logits = rules.constrain(logits, *axes)
+    return logits
+
+
+def _bsd_vd(h, table):
+    return torch.einsum("bsd,vd->bsv", h, table)
 
 
 def unembed_table(params, cfg):
@@ -462,8 +516,9 @@ def decode_forward(params, cfg, tokens, cache, index, *, rules=None,
                    cdt=torch.bfloat16):
     """One decode step. tokens: (B, 1) int; index: the position (an int,
     or a 0-d tensor, read on the host). Updates ``cache`` in place and
-    returns (logits (B, vocab_padded), cache)."""
-    L.single_device(rules)
+    returns (logits (B, vocab_padded), cache). With ``rules``, params
+    and cache are DTensors; each rank writes its own shard of the cache,
+    inside ``sharding.step_scope(rules)`` as :func:`forward`."""
     index = int(index)
     B = tokens.shape[0]
     positions = torch.full((B, 1), index, device=tokens.device)
@@ -477,25 +532,27 @@ def decode_forward(params, cfg, tokens, cache, index, *, rules=None,
                          _unstack(cache["self"])):
             ekv = _enc_kv(lp, enc_out, cfg, cdt)
             h, _ = _dec_layer_apply(lp, h, cfg, positions=positions,
-                                    enc_kv=ekv, cdt=cdt, cache=c,
-                                    cache_index=index)
+                                    enc_kv=ekv, rules=rules, cdt=cdt,
+                                    cache=c, cache_index=index)
     elif fam == "ssm":
         for pp, st in zip(_unstack(params["pairs"]), _unstack(cache)):
-            h, s1 = X.mlstm_block_apply(pp["mlstm"], h, cfg, cdt=cdt,
-                                        state=st["mlstm"])
-            h, s2 = X.slstm_block_apply(pp["slstm"], h, cfg, cdt=cdt,
-                                        state=st["slstm"])
+            h, s1 = X.mlstm_block_apply(pp["mlstm"], h, cfg, rules=rules,
+                                        cdt=cdt, state=st["mlstm"])
+            h, s2 = X.slstm_block_apply(pp["slstm"], h, cfg, rules=rules,
+                                        cdt=cdt, state=st["slstm"])
             _store(st, {"mlstm": s1, "slstm": s2})
     elif fam == "hybrid":
         for pp, c in zip(_unstack(params["periods"]), _unstack(cache)):
-            h, _, _ = _period_apply(pp, h, cfg, positions=positions, cdt=cdt,
-                                    caches=c, cache_index=index)
+            h, _, _ = _period_apply(pp, h, cfg, positions=positions,
+                                    rules=rules, cdt=cdt, caches=c,
+                                    cache_index=index)
     else:
         for lp, c in zip(_unstack(params["layers"]), _unstack(cache)):
-            h, _, _ = _layer_apply(lp, h, cfg, positions=positions, cdt=cdt,
-                                   cache=c, cache_index=index)
+            h, _, _ = _layer_apply(lp, h, cfg, positions=positions,
+                                   rules=rules, cdt=cdt, cache=c,
+                                   cache_index=index)
 
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", h.to(cdt),
-                          unembed_table(params, cfg).to(cdt))
+    logits = unembed_logits(h.to(cdt), unembed_table(params, cfg).to(cdt),
+                            rules, ("batch", None, "vocab"))
     return logits[:, 0], cache

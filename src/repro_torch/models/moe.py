@@ -2,9 +2,8 @@
 
 Dispatch/combine are dense one-hot einsums (no data-dependent shapes),
 applied per sequence chunk so the (tokens, experts, capacity) dispatch
-tensor stays small even at 32k sequence length. The reference shards
-experts over the ``model`` mesh axis (expert parallelism); the port runs
-on one device.
+tensor stays small even at 32k sequence length. With ``rules`` the
+experts are sharded over the ``model`` mesh axis (expert parallelism).
 
 Routing is the reference's: top-k breaks ties toward the lower expert
 index, a (token, k) pair's slot in its expert is its rank in the chunk's
@@ -23,7 +22,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _init, single_device
+from repro_torch.models.layers import _init
+from repro_torch.runtime import sharding as SH
 
 MOE_CHUNK = 1024  # sequence chunk for dispatch (memory knob)
 
@@ -81,8 +81,10 @@ def moe_route(p, h, cfg, cap: int):
 
 
 def moe_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
-    single_device(rules)
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar). The sequence
+    stays whole inside (a sequence-split DTensor is joined first): the
+    dispatch einsums pair tokens across it, as in the FFN."""
+    x = SH.join_tokens(x)
     B, S, D = x.shape
     K = cfg.moe.top_k
     E = cfg.moe.n_experts
@@ -99,11 +101,15 @@ def moe_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16):
         comb = torch.einsum("bcke,bckp,bck->bcep", onehot, slot_oh, topv)
         # dispatch tokens to expert slots
         xin = torch.einsum("bcep,bcd->ebpd", disp.to(cdt), h)   # E,B,cap,D
+        if rules is not None:
+            xin = rules.constrain(xin, "experts", "batch", None, None)
         gate = F.silu(torch.einsum("ebpd,edf->ebpf", xin,
                                    p["w_gate"].to(cdt)))
         up = torch.einsum("ebpd,edf->ebpf", xin, p["w_up"].to(cdt))
         eout = torch.einsum("ebpf,efd->ebpd", gate * up,
                             p["w_down"].to(cdt))
+        if rules is not None:
+            eout = rules.constrain(eout, "experts", "batch", None, None)
         outs.append(torch.einsum("bcep,ebpd->bcd", comb.to(cdt), eout))
         # load-balance aux (Switch-style): mean prob * mean assigned fraction
         me = probs.mean(dim=(0, 1))                                   # E

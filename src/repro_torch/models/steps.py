@@ -7,9 +7,18 @@ model input (nothing allocated), as do ``abstract_params``,
 A train step takes its gradients with ``torch.autograd`` and updates
 with the port's AdamW (:mod:`repro_torch.optim.adamw`), so its metrics
 carry the reference's names.
+
+With ``rules`` (:class:`repro_torch.runtime.sharding.ShardingRules`) the
+params, optimizer state and cache are DTensors the caller placed
+(``tree_shardings`` + ``place_tree``); a batch given as plain tensors,
+which every rank holds in full, is placed ``("batch", None, ...)`` as the
+reference's dry run places it. Gradients are redistributed to their
+params' placements before ``grad_transform`` and the optimizer, and the
+metrics come back as plain (replicated) tensors.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -17,9 +26,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import model as MODEL
-from repro_torch.models.layers import single_device
 from repro_torch.optim import adamw
 from repro_torch.params import tree_flatten, tree_unflatten
+from repro_torch.runtime import sharding as SH
 
 
 def _nll(logits, labels, vocab: int):
@@ -33,7 +42,13 @@ def _nll(logits, labels, vocab: int):
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if isinstance(logits, SH.DTensor):
+        # the gold logit as a masked sum (the same value): DTensor runs
+        # gather's backward as zeros of the global shape on every rank
+        col = torch.arange(vpad, device=logits.device)
+        gold = torch.where(col == safe[..., None], logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     return ((logz - gold) * mask).sum(), mask.sum().float()
 
 
@@ -44,8 +59,9 @@ def cross_entropy_loss(logits, labels, vocab: int):
     return nll / torch.clamp(cnt, min=1)
 
 
-def _chunk_nll(hx, lx, table, vocab: int):
-    logits = torch.einsum("bsd,vd->bsv", hx, table.to(hx.dtype))
+def _chunk_nll(hx, lx, table, vocab: int, rules):
+    logits = MODEL.unembed_logits(hx, table.to(hx.dtype), rules,
+                                  ("batch", None, "vocab"))
     return _nll(logits.float(), lx, vocab)
 
 
@@ -55,7 +71,6 @@ def fused_unembed_loss(h, table, labels, vocab: int, *, chunk: int = 512,
     never built. Each chunk's loss is checkpointed, so its logits are
     freed after the forward and recomputed, one chunk at a time, in the
     backward (a large activation-memory win at 32k seq / 150k vocab)."""
-    single_device(rules)
     S = h.shape[1]
     chunk = min(chunk, S)
     nll = torch.zeros((), device=h.device)
@@ -63,21 +78,23 @@ def fused_unembed_loss(h, table, labels, vocab: int, *, chunk: int = 512,
     for start in range(0, S, chunk):
         sl = slice(start, start + chunk)
         s, c = checkpoint(_chunk_nll, h[:, sl], labels[:, sl], table,
-                          vocab, use_reentrant=False)
+                          vocab, rules, use_reentrant=False)
         nll, cnt = nll + s, cnt + c
     return nll / torch.clamp(cnt, min=1)
 
 
 def make_loss_fn(cfg: ArchConfig, rules=None, remat=True):
-    single_device(rules)
-
     def loss_fn(params, batch):
-        h, aux = MODEL.forward(params, cfg, batch, remat=remat,
-                               unembed=False)
+        h, aux = MODEL.forward(params, cfg, batch, rules=rules,
+                               remat=remat, unembed=False)
         loss = fused_unembed_loss(h, MODEL.unembed_table(params, cfg),
-                                  batch["labels"], cfg.vocab)
+                                  batch["labels"], cfg.vocab, rules=rules)
         return loss + aux, {"loss": loss, "aux": aux}
     return loss_fn
+
+
+def _plain(x):
+    return x.full_tensor() if isinstance(x, SH.DTensor) else x
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
@@ -92,10 +109,17 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     loss_fn = make_loss_fn(cfg, rules=rules, remat=remat)
 
     def train_step(params, opt_state, batch):
-        live = [p.detach().requires_grad_() for p in tree_flatten(params)]
+        # the backward, which recomputes remat'd layers, runs inside too
+        with SH.step_scope(rules):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
+        batch = SH.place_batch(rules, batch)
+        flat = tree_flatten(params)
+        live = [p.detach().requires_grad_() for p in flat]
         total, inner = loss_fn(tree_unflatten(params, live), batch)
         grads = torch.autograd.grad(total, live, materialize_grads=True)
-        grads = tree_unflatten(params, list(grads))
+        grads = tree_unflatten(params, SH.like(grads, flat))
         if grad_transform is not None:
             grads = grad_transform(grads)
         params, opt_state, opt_metrics = adamw.apply_updates(
@@ -103,25 +127,31 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
         metrics = {"total_loss": total.detach(),
                    **{k: v.detach() for k, v in inner.items()},
                    **opt_metrics}
-        return params, opt_state, metrics
+        return params, opt_state, {k: _plain(v) for k, v in metrics.items()}
 
     return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, rules=None):
     """prefill_step(params, batch) -> last-token logits (B, Vpad)."""
-    single_device(rules)
-
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = MODEL.forward(params, cfg, batch, remat=False)
-        return logits[:, -1]
+        with SH.step_scope(rules):
+            logits, _ = MODEL.forward(params, cfg,
+                                      SH.place_batch(rules, batch),
+                                      rules=rules, remat=False)
+            return logits[:, -1]
     return prefill_step
 
 
 def next_token(logits, vocab: int):
     """Greedy token (B, 1) int32 of (B, Vpad) logits; padded vocab
-    columns never win."""
+    columns never win. A DTensor's argmax runs on replicated logits
+    (DTensor's own fails at batch 1 in torch 2.11)."""
+    return SH.replicated(functools.partial(_greedy, vocab=vocab), logits)
+
+
+def _greedy(logits, vocab: int):
     vpad = logits.shape[-1]
     if vpad > vocab:
         col = torch.arange(vpad, device=logits.device)
@@ -132,12 +162,13 @@ def next_token(logits, vocab: int):
 def make_decode_step(cfg: ArchConfig, rules=None):
     """decode_step(params, cache, tokens, index) -> (next_token, cache);
     the cache is updated in place."""
-    single_device(rules)
-
     def decode_step(params, cache, tokens, index):
-        logits, new_cache = MODEL.decode_forward(params, cfg, tokens, cache,
-                                                 index)
-        return next_token(logits, cfg.vocab), new_cache
+        with SH.step_scope(rules):
+            tokens = SH.place_batch(rules, {"tokens": tokens})["tokens"]
+            logits, new_cache = MODEL.decode_forward(params, cfg, tokens,
+                                                     cache, index,
+                                                     rules=rules)
+            return next_token(logits, cfg.vocab), new_cache
     return decode_step
 
 

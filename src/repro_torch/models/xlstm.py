@@ -17,7 +17,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _init, rms_norm, single_device
+from repro_torch.models.layers import _init, rms_norm
+from repro_torch.runtime import sharding as SH
 from repro_torch.models.mamba import _causal_conv
 
 MLSTM_CHUNK = 256
@@ -81,7 +82,9 @@ def _mlstm_cell_chunkwise(q, k, v, li, lf):
         sl = slice(c * L, (c + 1) * L)
         qc, kc, vc, lic, lfc = q[:, :, sl], k[:, :, sl], v[:, :, sl], \
             li[..., sl], lf[..., sl]
-        b = torch.cumsum(lfc, dim=-1)                       # B,H,L inclusive
+        # (row by row on a mesh: cumsum's backward flips, and torch 2.11's
+        # DTensor has no strategy for flip)
+        b = SH.rowwise(_cumsum, lfc)                        # B,H,L inclusive
         # intra-chunk log weights: D[i,j] = b_i - b_j + li_j  (j<=i)
         logD = b[..., :, None] - b[..., None, :] + lic[..., None, :]
         logD = torch.where(tri, logD, -1e30)
@@ -128,15 +131,22 @@ def _mlstm_cell_step(state, q, k, v, li, lf):
     return {"C": C_new, "n": n_new, "m": m_new}, h
 
 
+def _cumsum(x):
+    return torch.cumsum(x, dim=-1)
+
+
 def mlstm_block_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16,
                       state: Optional[Dict] = None):
-    """x: (B,S,D) -> (out, new_state)."""
-    single_device(rules)
+    """x: (B,S,D) -> (out, new_state). The sequence stays whole inside (a
+    sequence-split DTensor is joined first): the cell runs along it."""
+    x = SH.join_tokens(x)
     B, S, D = x.shape
     H, dh = cfg.n_heads, cfg.resolved_head_dim
     xi = rms_norm(x, p["norm"], cfg.norm_eps).to(cdt)
     up = xi @ p["up_proj"].to(cdt)
     inner, z = torch.chunk(up, 2, dim=-1)
+    if rules is not None:
+        inner = rules.constrain(inner, "batch", None, "ffn")
     conv_state = state["conv"] if state is not None else None
     cx, new_conv = _causal_conv(inner, p["conv_w"].to(cdt),
                                 p["conv_b"].to(cdt), conv_state)
@@ -147,7 +157,8 @@ def mlstm_block_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16,
     gates = (cx @ p["w_if"].to(cdt)).float()
     gi, gf = torch.chunk(gates, 2, dim=-1)                   # B,S,H
     li = (gi + p["b_i"]).transpose(1, 2)                     # B,H,S
-    lf = F.logsigmoid(gf + p["b_f"]).transpose(1, 2)
+    # no DTensor strategy for log-sigmoid's backward: replicated
+    lf = SH.replicated(F.logsigmoid, gf + p["b_f"]).transpose(1, 2)
     qT = q.transpose(1, 2).float()
     kT = k.transpose(1, 2).float()
     vT = v.transpose(1, 2).float()
@@ -242,7 +253,7 @@ def _slstm_scan(wx, r, state):
 
 def slstm_block_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16,
                       state: Optional[Dict] = None):
-    single_device(rules)
+    x = SH.join_tokens(x)      # the sequence stays whole, as in mLSTM
     B, S, D = x.shape
     xi = rms_norm(x, p["norm"], cfg.norm_eps)
     wx = (xi.to(cdt) @ p["w_gates"].to(cdt)).float()

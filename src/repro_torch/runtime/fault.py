@@ -11,8 +11,7 @@ injected in tests):
   p50 step time by `straggler_factor` are flagged; the supervisor's policy
   hook can rebalance data shards or evict.
 
-Re-placing a restored state on a new mesh comes with the multi-card
-trainer.
+``elastic_reshard`` re-places a state on a new mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.runtime import sharding as SH
 
 
 @dataclass
@@ -98,9 +98,10 @@ class TrainSupervisor:
         ckpt.save(self.ckpt_dir, step, state,
                   extra=(extra_fn() if extra_fn else {}), keep=self.keep)
 
-    def try_restore(self, state, check_treedef: bool = True):
+    def try_restore(self, state, shardings=None, check_treedef: bool = True):
         """Returns (state, start_step, extra) — or the inputs if no ckpt.
-        Restored tensors land on the devices of ``state``'s leaves.
+        Restored tensors land on the devices of ``state``'s leaves, or
+        as DTensors placed by ``shardings`` (see ``ckpt.restore``).
 
         check_treedef is forwarded to ckpt.restore; pass False to resume
         across benign drift in the recorded key paths."""
@@ -108,6 +109,7 @@ class TrainSupervisor:
             return state, 0, {}
         try:
             state, step, extra = ckpt.restore(self.ckpt_dir, state,
+                                              shardings=shardings,
                                               check_treedef=check_treedef)
             return state, step, extra
         except FileNotFoundError:
@@ -140,3 +142,15 @@ class TrainSupervisor:
                     return state
         self._save(n_steps, state, extra_fn)
         return state
+
+
+def elastic_reshard(state, old_mesh_shape, new_rules, abstract_state_axes):
+    """Recompute shardings for a new mesh and re-place the state: each
+    leaf (a DTensor on the old mesh, gathered first, or a tensor every
+    rank holds in full) becomes a DTensor placed by ``new_rules`` for its
+    logical axes. ``old_mesh_shape`` is accepted as the reference's is
+    and not needed: a DTensor carries its own mesh."""
+    def one(axes, leaf):
+        full = leaf.full_tensor() if isinstance(leaf, SH.DTensor) else leaf
+        return SH.place(full, new_rules.sharding(axes, full.shape))
+    return SH.map_axes(one, abstract_state_axes, state)

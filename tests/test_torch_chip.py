@@ -954,3 +954,54 @@ def test_lm_reduced_arch_card_matches_cpu(cuda, name):
         params, adamw.init_state(params), batch)
     assert np.isfinite(float(m["loss"]))
     assert all(bool(torch.isfinite(t).all()) for t in P.tree_flatten(new))
+
+
+def test_lm_rules_step_on_one_rank_nccl_mesh(cuda):
+    """The LM steps' ``rules`` paths on a one-rank NCCL mesh (qwen3-0.6b
+    reduced): params, state and cache as replicated DTensors; one train
+    step and 4 decode steps equal ``rules=None``'s bit for bit (every
+    placement on a mesh of one is Replicate: the same ops run)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_single_device_mesh
+    from repro_torch.models import model as MODEL
+    from repro_torch.models import steps as STEPS
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as SH
+    assert not dist.is_initialized()
+    try:
+        rules = SH.ShardingRules(make_single_device_mesh())
+        assert dist.get_backend() == "nccl"
+        cfg = get_arch("qwen3-0.6b").reduced()
+        with cuda:
+            params = MODEL.init_params(
+                torch.Generator(cuda).manual_seed(0), cfg)
+        axes = MODEL.param_axes(cfg)
+        dp = SH.place_tree(params, SH.tree_shardings(rules, axes, params))
+        batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+                 lm_numpy_batch(cfg, 2, 32).items()}
+        opt_cfg = adamw.AdamWConfig(lr=1e-3)
+        state = adamw.init_state(params)
+        dstate = SH.place_tree(state, SH.tree_shardings(
+            rules, STEPS.opt_state_axes(axes), state))
+        p0, _, m0 = STEPS.make_train_step(cfg, opt_cfg)(params, state,
+                                                        batch)
+        p1, _, m1 = STEPS.make_train_step(cfg, opt_cfg, rules=rules)(
+            dp, dstate, batch)
+        assert torch.equal(m1["total_loss"], m0["total_loss"])
+        for a, b in zip(P.tree_flatten(p1), P.tree_flatten(p0)):
+            assert torch.equal(a.full_tensor(), b)
+        c0 = MODEL.init_cache(cfg, 2, 8, device=cuda)
+        c1 = SH.place_tree(MODEL.init_cache(cfg, 2, 8, device=cuda),
+                           SH.tree_shardings(rules, MODEL.cache_axes(cfg),
+                                             c0))
+        t0 = t1 = batch["tokens"][:, :1]
+        d0 = STEPS.make_decode_step(cfg)
+        d1 = STEPS.make_decode_step(cfg, rules=rules)
+        for i in range(4):
+            t0, c0 = d0(params, c0, t0, i)
+            t1, c1 = d1(dp, c1, t1, i)
+            assert torch.equal(t1.full_tensor(), t0)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

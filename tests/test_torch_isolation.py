@@ -52,13 +52,16 @@ def test_port_imports_with_jax_and_reference_blocked():
                           capture_output=True, text=True, env=env,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    # every module imported (76): the serving tier, obs, the launch CLIs,
-    # the architecture configs, the StableHLO lowering and the LLM
-    # substrate
+    # every module imported (81): the serving tier, obs, the launch CLIs,
+    # the architecture configs, the StableHLO lowering, the LLM
+    # substrate and the mesh tooling
     names = proc.stdout.split()
-    assert len(names) >= 76
+    assert len(names) >= 81
     assert {f"repro_torch.models.{m}" for m in (
         "layers", "moe", "mamba", "xlstm", "model", "steps")} <= set(names)
+    assert {"repro_torch.runtime.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.launch.hlo_cost",
+            "repro_torch.launch.roofline"} <= set(names)
 
 
 @pytest.mark.parametrize("path", sorted(

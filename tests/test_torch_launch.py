@@ -108,13 +108,13 @@ def test_train_checkpoints_evaluate_across_packages(model, tmp_path,
     assert_metrics_close(trained, want)
 
 
-def test_train_single_target_and_argument_errors(tmp_path, capsys):
+def test_train_single_target_and_argument_errors(tmp_path, capfd):
     got = T_TRAIN.main([*TRAIN_ARGS[:2], "--model", "fc", "--steps", "5",
                         "--n-graphs", "60", "--batch", "32",
                         "--ckpt-dir", str(tmp_path / "a"), "--device",
                         "cpu"])
     assert "rmse_rel_pct" in got       # one target: flat metrics
-    assert "eval: " in capsys.readouterr().out
+    assert "eval: " in capfd.readouterr().out
     with pytest.raises(SystemExit):
         T_TRAIN.main([*TRAIN_ARGS[:2], "--target", "bogus", "--n-graphs",
                       "60", "--ckpt-dir", str(tmp_path / "b"),
@@ -122,10 +122,21 @@ def test_train_single_target_and_argument_errors(tmp_path, capsys):
     with pytest.raises(SystemExit):
         T_TRAIN.main(["--eval-only", "--n-graphs", "60", "--ckpt-dir",
                       str(tmp_path / "empty"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="M9"):
-        T_TRAIN.main(["--mesh-data", "2", "--n-graphs", "60",
-                      "--ckpt-dir", str(tmp_path / "c"), "--device",
-                      "cpu"])
+    # --mesh-data 2: two spawned gloo ranks train one model; rank 0
+    # prints the reference's lines once, and its metrics are those of
+    # one device's run
+    capfd.readouterr()
+    mesh_args = [*TRAIN_ARGS[:4], "--steps", "5", "--n-graphs", "60",
+                 "--batch", "32", "--device", "cpu"]
+    one = T_TRAIN.main([*mesh_args, "--ckpt-dir", str(tmp_path / "c1")])
+    capfd.readouterr()
+    two = T_TRAIN.main([*mesh_args, "--mesh-data", "2",
+                        "--ckpt-dir", str(tmp_path / "c2")])
+    out = capfd.readouterr().out.splitlines()
+    for prefix in ("dataset: ", "trained 5 steps", "eval[latency_us]",
+                   "eval[register_pressure]", "eval[valu_utilization]"):
+        assert sum(ln.startswith(prefix) for ln in out) == 1, (prefix, out)
+    assert_metrics_close(two, one)
 
 
 @pytest.mark.parametrize("kernel", [False, True])

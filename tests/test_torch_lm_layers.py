@@ -227,13 +227,53 @@ def test_ffn_apply(gated, dtype):
 
 
 def test_unset_rules_only():
-    """Sharding rules wait for runtime/sharding.py (M9b)."""
-    cfg = t_arch("qwen3-0.6b").reduced()
-    x = torch.zeros((1, 4, 64))
-    with pytest.raises(NotImplementedError, match="M9b"):
-        TL.ffn_apply({}, x, rules=object())
-    with pytest.raises(NotImplementedError, match="M9b"):
-        TS.make_train_step(cfg, None, rules=object())
+    """Rules on a mesh of one (a one-rank gloo group, taken down after)
+    run, and give what ``rules=None`` gives bit for bit: every placement
+    there is ``Replicate``. The FFN takes DTensor params and a plain
+    input; a train step takes DTensor params and state and a plain
+    batch. (Meshes of several ranks: tests/test_torch_mesh_train.py.)"""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_single_device_mesh
+    from repro_torch.models import model as TMODEL
+    from repro_torch.optim import adamw as T_ADAMW
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.params import tree_map
+    assert not dist.is_initialized()
+    try:
+        rules = SH.ShardingRules(make_single_device_mesh(device="cpu"))
+        tree = jax.tree.map(np.asarray, RL.ffn_init(jax.random.PRNGKey(5),
+                                                    64, 128))
+        pt = from_numpy(tree, "cpu")
+        dp = SH.place_tree(pt, SH.tree_shardings(rules, TL.ffn_axes(), pt))
+        x = torch.from_numpy(np.random.default_rng(5).normal(
+            size=(2, 9, 64)).astype(np.float32))
+        want = TL.ffn_apply(pt, x, cdt=torch.float32)
+        with SH.step_scope(rules):
+            got = TL.ffn_apply(dp, x, rules=rules, cdt=torch.float32)
+        assert isinstance(got, SH.DTensor)
+        assert torch.equal(got.full_tensor(), want)
+
+        cfg = t_arch("qwen3-0.6b").reduced()
+        params = TMODEL.init_params(torch.Generator().manual_seed(0), cfg)
+        rng = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(rng.integers(
+            1, cfg.vocab, (2, 16)).astype(np.int32))
+            for k in ("tokens", "labels")}
+        opt_cfg = T_ADAMW.AdamWConfig()
+        p0, _, m0 = TS.make_train_step(cfg, opt_cfg)(
+            params, T_ADAMW.init_state(params), batch)
+        sh = SH.tree_shardings(rules, TMODEL.param_axes(cfg), params)
+        dparams = SH.place_tree(params, sh)
+        p1, _, m1 = TS.make_train_step(cfg, opt_cfg, rules=rules)(
+            dparams, T_ADAMW.init_state(dparams), batch)
+        assert torch.equal(m1["total_loss"], m0["total_loss"])
+        full = tree_map(lambda t: t.full_tensor(), p1)
+        for a, b in zip(tree_flatten(full), tree_flatten(p0)):
+            assert torch.equal(a, b)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ------------------------------------------------------------------- MoE

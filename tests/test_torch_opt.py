@@ -520,9 +520,32 @@ def test_unroll_advisor_refuses_single_head(world):
         T_SVC.UnrollAdvisor(_single_head(world)).advise(_chain_graph())
 
 
+def _same_advice(got, want, tol):
+    """Decisions (bools, ints, dict keys) equal; floats within ``tol``
+    relative and ``tol`` absolute (the costs are far above ``tol``; the
+    recompile shift, itself a relative difference of two costs, may be
+    0.0 on one side)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _same_advice(got[k], want[k], tol)
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _same_advice(g, w, tol)
+    elif isinstance(want, float):
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    else:
+        assert got == want
+
+
 def test_advisors_through_the_server(world):
     """The advisors duck-type a CostModelServer as they do the service:
-    the same numbers bit for bit."""
+    the same decisions, and costs within 1e-6 relative. The plain CPU
+    path does not keep a row's last bits across batch packing (the
+    service's docstring), and the server packs by thread timing: with
+    batches forced to 1 or 2 rows the costs moved by up to 2.5e-7
+    relative."""
     svc = world["make"]()
     rng = np.random.default_rng(11)
     bert = samplers.sample_graph(rng, "bert")
@@ -536,7 +559,7 @@ def test_advisors_through_the_server(world):
                T_SVC.UnrollAdvisor(server, register_budget=1e9).advise(
                    bert),
                T_SVC.RecompileAdvisor(server).advise(bert, aug))
-    assert got == want
+    _same_advice(got, want, tol=1e-6)
 
 
 # ------------------------------------------------- closed loop / acceptance

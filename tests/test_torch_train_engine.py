@@ -272,9 +272,13 @@ def test_engine_defaults_to_the_card_and_refuses_a_mesh():
     with pytest.raises(RuntimeError):
         TR.TrainEngine("conv1d", COSTMODEL_SMALL, "latency_us",
                        device="cuda")
-    with pytest.raises(NotImplementedError, match="M9"):
+    # a mesh runs only inside a process group of its size (none here)
+    with pytest.raises(ValueError, match="2 x 1 mesh has 2 places"):
         TR.TrainEngine("conv1d", COSTMODEL_SMALL, "latency_us",
                        mesh_data=2, **CPU)
+    with pytest.raises(ValueError, match="2 x 2 mesh has 4 places"):
+        TR.TrainEngine("conv1d", COSTMODEL_SMALL, "latency_us",
+                       mesh_data=2, mesh_model=2, **CPU)
     # every family trains; an unknown kind names the four
     for kind in ("fc", "xformer"):
         eng = TR.TrainEngine(kind, COSTMODEL_SMALL, "latency_us", **CPU)

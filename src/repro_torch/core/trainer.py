@@ -66,6 +66,7 @@ from repro_torch.core import models as CM
 from repro_torch.core.service import pad_slack
 from repro_torch.data import pipeline as PIPE
 from repro_torch.ir import dataset as DS
+from repro_torch.obs import trace as OBS
 from repro_torch.optim import adamw, compress
 from repro_torch.runtime import fault
 from repro_torch.runtime import sharding as SH
@@ -99,8 +100,18 @@ def make_loss_fn(apply_fn, heads: Optional[Tuple[str, ...]] = None):
 def value_and_grad(loss_fn, params, ids, y):
     """(loss, grads tree) of ``loss_fn`` at ``params``; neither carries
     an autograd graph."""
+    return _grads(params, *_loss_and_leaves(loss_fn, params, ids, y))
+
+
+def _loss_and_leaves(loss_fn, params, ids, y):
+    """The forward half of :func:`value_and_grad`: the loss, with its
+    graph, and the leaves it was taken at."""
     flat = [p.detach().requires_grad_(True) for p in P.tree_flatten(params)]
-    loss = loss_fn(P.tree_unflatten(params, flat), ids, y)
+    return loss_fn(P.tree_unflatten(params, flat), ids, y), flat
+
+
+def _grads(params, loss, flat):
+    """The backward half of :func:`value_and_grad`."""
     grads = torch.autograd.grad(loss, flat)
     return loss.detach(), P.tree_unflatten(params, grads)
 
@@ -169,10 +180,24 @@ class TrainEngine:
 
     ``init_fn(cfg, heads=None, *, generator)`` makes the initial params
     (on the CPU; :meth:`fit` moves them to the device); replace it to
-    start from given params."""
+    start from given params.
+
+    Each :meth:`fit` records one trace into ``tracer`` (default
+    :func:`repro_torch.obs.trace.default_tracer`): a root ``trainer.fit``
+    whose children are ``trainer.prepare`` (from the call to the first
+    step) and a ``trainer.step`` (tags ``step``, counted from 1 as
+    ``on_step`` counts, and ``profiled``, whether a torch profiler
+    recorded it) for each sampled step, with five children:
+    ``trainer.batch`` (the wait on the loader), ``trainer.copy_in`` (the
+    batch's copies to the device, which wait for the card from pageable
+    memory), ``trainer.forward``, ``trainer.backward`` and
+    ``trainer.optimizer``. The run's first step is always sampled, a
+    later one when ``tracer.sample()`` hits or while a torch profiler
+    records (:func:`repro_torch.obs.trace.profiling`)."""
 
     def __init__(self, kind: str, cfg, target: TargetSpec,
-                 engine: Optional[EngineConfig] = None, **overrides):
+                 engine: Optional[EngineConfig] = None, *,
+                 tracer: Optional[OBS.Tracer] = None, **overrides):
         self.kind = kind
         self.cfg = cfg
         self.heads = None if isinstance(target, str) else tuple(target)
@@ -201,6 +226,7 @@ class TrainEngine:
                 "cuda", dist.get_rank() % torch.cuda.device_count())
         self.init_fn, self.apply_fn = CM.get_model(kind)
         self.axes_fn = CM.get_axes(kind)
+        self.tracer = tracer or OBS.default_tracer()
 
     # ------------------------------------------------------------- pipeline
     def bucket_assignments(self, train: DS.CostDataset
@@ -237,7 +263,14 @@ class TrainEngine:
     # ------------------------------------------------------------------ fit
     def fit(self, train: DS.CostDataset, *,
             on_step: Optional[Callable] = None) -> TrainResult:
+        tr = self.tracer
+        with tr.span("trainer.fit", tr.sample(force=True)) as root:
+            return self._fit(train, on_step, root.ctx)
+
+    def _fit(self, train, on_step, fit_ctx) -> TrainResult:
         e = self.ecfg
+        tr = self.tracer
+        prepare = tr.start("trainer.prepare", fit_ctx)
         dev = self.device
         gen = torch.Generator().manual_seed(e.seed)
         if self.heads:
@@ -259,17 +292,21 @@ class TrainEngine:
             else None
         loss_fn = make_loss_fn(self.apply_fn, self.heads)
 
-        def train_step(state, ids, yy):
+        def train_step(state, ids, yy, ctx):
             params, opt_state, err = state
+            forward = tr.start("trainer.forward", ctx)
             batch = SH.place_batch(rules, {"ids": ids, "y": yy})
             with SH.step_scope(rules):
-                loss, grads = value_and_grad(loss_fn, params, batch["ids"],
-                                             batch["y"])
-                if rules is not None:
-                    grads = P.tree_unflatten(grads, SH.like(
-                        P.tree_flatten(grads), P.tree_flatten(params)))
-                    loss = loss.full_tensor()
-                with torch.no_grad():
+                loss, flat = _loss_and_leaves(loss_fn, params, batch["ids"],
+                                              batch["y"])
+                tr.end(forward)
+                with tr.span("trainer.backward", ctx):
+                    loss, grads = _grads(params, loss, flat)
+                    if rules is not None:
+                        grads = P.tree_unflatten(grads, SH.like(
+                            P.tree_flatten(grads), P.tree_flatten(params)))
+                        loss = loss.full_tensor()
+                with tr.span("trainer.optimizer", ctx), torch.no_grad():
                     if err is not None:
                         grads, err = compress.compress_grads(grads, err)
                     params, opt_state, _ = adamw.apply_updates(
@@ -296,10 +333,18 @@ class TrainEngine:
         last = [torch.tensor(float("nan"))]
 
         def step_fn(state, step):
-            batch = next(it)
-            state, loss = train_step(state,
-                                     torch.from_numpy(batch["ids"]).to(dev),
-                                     torch.from_numpy(batch["y"]).to(dev))
+            profiled = OBS.profiling()
+            sampled = tr.sample(force=step == start or profiled)
+            with tr.span("trainer.step",
+                         fit_ctx if sampled is not None else None,
+                         {"step": step + 1, "profiled": profiled}) as sp:
+                ctx = sp.ctx if sp is not None else None
+                with tr.span("trainer.batch", ctx):
+                    batch = next(it)
+                with tr.span("trainer.copy_in", ctx):
+                    ids = torch.from_numpy(batch["ids"]).to(dev)
+                    yy = torch.from_numpy(batch["y"]).to(dev)
+                state, loss = train_step(state, ids, yy, ctx)
             last[0] = loss     # device value; sync only at log points
             return state
 
@@ -313,6 +358,7 @@ class TrainEngine:
                 on_step(step, dt)
 
         heads_extra = list(self.heads) if self.heads else [self.target]
+        tr.end(prepare)
         t0 = time.perf_counter()
         state = sup.run(
             state, step_fn, e.steps, start_step=start,

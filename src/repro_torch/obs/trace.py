@@ -1,4 +1,4 @@
-"""Dependency-free request tracing for the serving stack.
+"""Dependency-free tracing for the serving stack and the trainer.
 
 One sampled request produces a *span tree* that crosses process
 boundaries: the client's featurize/fetch spans, the router's per-replica
@@ -8,9 +8,14 @@ clocks) stitch the tree together, because ``time.perf_counter`` has a
 different origin in every process. Each span therefore carries
 
 * ``t_wall`` — a ``time.time()`` stamp taken once at start, comparable
-  across processes on one host (display ordering only), and
+  across processes on one host, and
 * ``dur_s``  — a ``perf_counter`` delta (monotonic, NTP-safe), the
   number every latency aggregate is computed from.
+
+``t_wall`` is also on a torch profiler's timeline: Kineto stamps host
+and device events as ``trace_start_ns()`` (wall-clock nanoseconds) plus
+an offset, so ``[t_wall, t_wall + dur_s]`` places a span among the
+kernels of a trace taken in the same process.
 
 Sampling is *head-based*: the decision is made once per request at the
 client (default 1 in ``sample_every``, counter-driven so overhead is a
@@ -30,12 +35,19 @@ request's queue wait only at dispatch time). Finished spans land in a
 bounded ring-buffer :class:`TraceRecorder`; exporters drain it, the
 replica wire path ``take``s spans per trace id to ship them back to
 the client with the response.
+
+The trainer (:class:`repro_torch.core.trainer.TrainEngine`) records
+into :func:`default_tracer`, one per process, which samples 1 step in
+``TRAIN_SAMPLE_EVERY``. Its spans are never ``record_function`` ranges:
+under a CUDA trace Kineto turns such a range into a device-side
+annotation that a reader of the trace would count as work on the card.
 """
 from __future__ import annotations
 
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -261,6 +273,31 @@ class Tracer:
             tags["forced"] = 1
         self.emit(name, ctx, 0.0, status="err", tags=tags)
         return ctx
+
+
+TRAIN_SAMPLE_EVERY = 32
+_DEFAULT: Optional[Tracer] = None
+_DEFAULT_LOCK = threading.Lock()
+
+
+def default_tracer() -> Tracer:
+    """The process's trainer tracer, made on first use: it samples 1 in
+    ``TRAIN_SAMPLE_EVERY`` steps, so that a profiled run also times
+    steps the profiler does not slow."""
+    global _DEFAULT
+    with _DEFAULT_LOCK:
+        if _DEFAULT is None:
+            _DEFAULT = Tracer(sample_every=TRAIN_SAMPLE_EVERY,
+                              proc="trainer")
+        return _DEFAULT
+
+
+def profiling() -> bool:
+    """True while a torch profiler records in this process. Reads torch
+    only if something else imported it, so this module imports nothing
+    outside the standard library."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
 
 
 # --------------------------------------------------------- tree assembly

@@ -1,7 +1,11 @@
 """The port's CostModelService and CostModelServer against the
 reference service, built on the same (untrained) params, vocab and
 norm stats. Port-vs-reference checks are allclose: the reference does
-not give bit-identical rows across batch packings on the CPU."""
+not give bit-identical rows across batch packings on the CPU. Nor does
+the port: on the CPU a row can take other last bits in one rung of the
+batch ladder than in another, so its exact checks across packings pin
+one rung."""
+import sys
 import threading
 
 import jax
@@ -180,6 +184,47 @@ def test_lru_eviction_bounds_cache(world):
     svc.predict_all(gs[-4:])             # pure hits: no eviction, no growth
     assert set(svc._cache) == keys
     assert len(svc._cache) <= 8
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_service_lru_thread_safety_hammer(world, use_kernel):
+    """Concurrent direct predict_all callers on one service with a tiny
+    LRU (constant eviction) neither crash nor corrupt results: rows
+    equal, bit for bit, a service on the same single rung that never
+    evicts (twin of tests/test_server.py's hammer)."""
+    graphs = world["graphs"]
+    svc = world["make"](use_kernel=use_kernel, cache_size=8,
+                        batch_ladder=(8,))
+    want = world["make"](use_kernel=use_kernel,
+                         batch_ladder=(8,)).predict_all(graphs)
+    errs = []
+
+    def hammer(seed):
+        rng = np.random.default_rng(seed)
+        try:
+            for _ in range(6):
+                idx = rng.integers(0, len(graphs), 12)
+                out = svc.predict_all([graphs[i] for i in idx])
+                for t in RM.DEFAULT_HEADS:
+                    np.testing.assert_array_equal(out[t], want[t][idx])
+        except Exception as e:
+            errs.append(e)
+
+    threads = [threading.Thread(target=hammer, args=(s,)) for s in range(6)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)          # switch threads as often as it can
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errs, errs
+    stats = svc.cache_stats()
+    assert stats["size"] <= 8
+    assert stats["misses"] > 0 and stats["hits"] > 0
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])

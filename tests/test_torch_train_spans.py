@@ -4,6 +4,7 @@ and one ``trainer.step`` a sampled step, each step split into five
 phases. Tracing changes no bit of the trained params; the spans never
 enter a torch profiler, and their wall stamps lie on its clock."""
 import os
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -75,9 +76,15 @@ def test_a_fit_records_its_steps_phases(sample_every, sampled, data,
                                         default_run):
     """The first step and those ``sample()`` hits each record one
     ``trainer.step``, tagged unprofiled, whose five phases parent onto
-    it and cover at least 90% of it, beside ``trainer.fit``'s
-    ``trainer.prepare``. Either way the params are those of the default
-    run, bit for bit."""
+    it, beside ``trainer.fit``'s ``trainer.prepare``; the phases cover
+    at least 90% of the median sampled step. Either way the params are
+    those of the default run, bit for bit.
+
+    The coverage is the median step's, not every step's: on the wall
+    clock, the OS preempting the thread between two phases leaves a
+    single step's phases short of it (beside 10 busy processes on 8
+    cores, 16 of 900 steps read under 0.9, the lowest 0.53), while the
+    median sampled step of 300 fits read at least 0.985."""
     tracer = OBS.Tracer(sample_every=sample_every, proc="trainer")
     result = _fit(data, tracer)
     recs = tracer.recorder.snapshot()
@@ -88,10 +95,12 @@ def test_a_fit_records_its_steps_phases(sample_every, sampled, data,
     steps = [s for s in recs if s["name"] == "trainer.step"]
     assert [s["tags"] for s in steps] == \
         [{"step": n, "profiled": False} for n in sampled]
+    covered = []
     for s in steps:
         kids = tree.children[s["span"]]
         assert [k["name"] for k in kids] == PHASES
-        assert sum(k["dur_s"] for k in kids) >= 0.9 * s["dur_s"]
+        covered.append(sum(k["dur_s"] for k in kids) / s["dur_s"])
+    assert statistics.median(covered) >= 0.9, covered
     assert len(recs) == 2 + 6 * len(steps)
     for a, b in zip(P.tree_flatten(result.params),
                     P.tree_flatten(default_run[0].params)):

@@ -8,7 +8,7 @@ Phases, each printing JSON lines:
 1. ``device``  — the card's name, and its name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    prints them (that raw line is printed too).
-2. ``build``   — builds the three CUDA kernel libraries from
+2. ``build``   — builds the four CUDA kernel libraries from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all started
    together; K1 and K3 share ``conv_tile.cuh``) and reports each one's
    seconds and ptxas register and spill lines.
@@ -74,7 +74,23 @@ Phases, each printing JSON lines:
    unmasked pool, or one without the last tile's positions, must miss by
    more than 10x the limit. Timed as K1 at B in {64, 1}. Its launches
    are counted over one ``conv_tower_apply`` run.
-8. ``train``   — ``TrainEngine`` on the card, COSTMODEL_BASE multi-head,
+8. ``kernels_embed`` — the conv1d lookup's backward kernel (E1,
+   ``embed_grad``) against its plain version in float64 at
+   base-train-b512's shapes (B=512, S in {32, 64, 128, 256}, vocab
+   8,192, E=64), float32 and bf16, ragged rows of 14-94 real tokens,
+   the same with one id in 90% of them, and 95% PAD: within the
+   kernel's longest chain of adds x 2^-23 x each id's sum of |rows|
+   (a bf16 result one rounding more), which the plain version without
+   one chunk of the most frequent id must miss by 10x; PAD's row and
+   absent ids zero; two launches the same bits. Times the op (sort and
+   two launches, ``ms``) and the two launches alone in turns with the
+   plain version, ``aten.embedding_dense_backward`` (``library_ms``) and
+   autograd's ``index_put_`` that it replaced, at S in {64, 128}, and
+   the op's and the library's card time alone and host time
+   (``device_ms``, ``host_ms``); the bound is the real rows, the ids and
+   the table over the memory rate, its share of the op's card time
+   ``roofline_pct``.
+9. ``train``   — ``TrainEngine`` on the card, COSTMODEL_BASE multi-head,
    the serve phases' dataset (split 0.1), B=64, bucketed. With the TF32
    switches at torch's defaults for that step only: a default
    (``use_kernel=False``) card service within 2e-4 of a CPU service, and
@@ -82,14 +98,15 @@ Phases, each printing JSON lines:
    plain conv without its precision guard (TF32) must miss. Then 200
    steps under deterministic algorithms with checkpoints every 50; a
    second run killed at step 120 and resumed from step 100 must land on
-   its params (rtol 1e-6, atol 1e-7); the last loss below half the
+   its params (rtol 1e-6, atol 1e-7), E1 launched once a step of the
+   first run (``embed_grad_launches``); the last loss below half the
    first; ``evaluate`` finite for every head; the first 10 losses within
    TRAIN_LOSS_RTOL of the same engine on the CPU (stopped at step 10 by
    the supervisor's SIGTERM preemption). The trained params are served
    through K1 (conv1d) and, after 20 LSTM steps, K2: rows within 2e-4
    of the plain card forward, one launch a batch. Reports ms a step for
    both (conv1d after 50 steps of warm-up).
-9. ``compiler`` — the compiler's path at COSTMODEL_BASE: trains conv1d
+10. ``compiler`` — the compiler's path at COSTMODEL_BASE: trains conv1d
    on the rewrite-augmented corpus (``build_dataset(600,
    rewrite_factor=1, seed=9)``, split 0.1; 250 steps of 128, lr 2e-3:
    the reference's opt-test settings), then serves the trained params
@@ -111,7 +128,7 @@ Phases, each printing JSON lines:
    ingest and encode, ``predict_text`` p50/p99, the search's seconds,
    calls and launches a graph, how many best graphs the CPU service
    also picks, and the card's busy share over one profiled search.
-10. ``replicated`` — the replicated serving tier on the card, the serve
+11. ``replicated`` — the replicated serving tier on the card, the serve
    phases' params and vocabulary. A ``ServiceSpec`` of a K1 service
    (``use_kernel=True``) spawns 4 replicas (``start_replicas``, the
    kernel library built in this process first); 512 requests (half
@@ -139,7 +156,7 @@ Phases, each printing JSON lines:
    card's free memory before and after each tier starts, start and
    respawn seconds, and the phase's seconds.
 
-11. ``families`` — the FC (bag-of-tokens) and transformer families at
+12. ``families`` — the FC (bag-of-tokens) and transformer families at
    COSTMODEL_BASE widths (embedding 64, FC 256/64; 2 blocks of 4 heads
    of 16), params from a seed with every bias, the position table and
    the LayerNorm gains drawn. With torch's default precision switches:
@@ -153,7 +170,7 @@ Phases, each printing JSON lines:
    100 steps at B=64: the loss below half its first value, the first
    10 losses within TRAIN_LOSS_RTOL of the CPU's. Reports the forward
    ms at B=64, S=256 (f32 beside bf16) and ms a training step.
-12. ``cli`` — the port's CLIs on the card, each called as
+13. ``cli`` — the port's CLIs on the card, each called as
    ``main(argv)`` in this process with its output captured.
    ``launch.train --preset base --target all`` for each of the four
    ``--model``s, 30 steps into a temporary ``--ckpt-dir``: a second call
@@ -170,7 +187,7 @@ Phases, each printing JSON lines:
    K1 launches equal to their warm-up shapes and forward batches, then
    ``launch.obs report`` on its JSONL exits 0 with every trace
    complete.
-13. ``ingest`` — the port's StableHLO lowering and the ingest CLI on
+14. ``ingest`` — the port's StableHLO lowering and the ingest CLI on
    the card. ``ir.stablehlo.lower_arch_corpus`` over all ten
    architectures, timed: 43 texts, each parsed by the front door into
    a graph with ops. ``launch.ingest --arch all --fuzz 200 --kernel``
@@ -186,7 +203,7 @@ Phases, each printing JSON lines:
    are two models: AdamW amplifies the devices' rounding). Reports the lowering's seconds, texts a
    second through ``predict_text`` (a fresh K1 service, cold LRU), K1's
    launches and the phase's seconds.
-14. ``lm`` — the LLM substrate (``repro_torch.models``) on the card,
+15. ``lm`` — the LLM substrate (``repro_torch.models``) on the card,
    plain PyTorch: no kernel lies on this path, and the phase line says
    so. qwen3-0.6b at its published widths (28 layers, d_model 1024, 16
    query and 8 KV heads of 128, vocab 151,936), params from the port's
@@ -215,7 +232,7 @@ Phases, each printing JSON lines:
    host at the phase's start (threads, child processes, a fixed Python
    loop's seconds): the step and decode are host-bound.
 
-15. ``mesh`` — the mesh tooling. (a) qwen3-0.6b at its published widths
+16. ``mesh`` — the mesh tooling. (a) qwen3-0.6b at its published widths
    on a one-rank NCCL mesh (``launch.mesh.make_single_device_mesh``):
    params and optimizer state placed as DTensors by the reference's
    rules, one train step at B=8, S=512 through ``make_train_step(rules=
@@ -241,7 +258,8 @@ Phases, each printing JSON lines:
 
 Then one ``{"kernels": [...]}`` line (K1's and K2's ``launches`` add
 the replicated phase's, counted in the replicas, and K1's the cli,
-ingest and mesh phases', under ``launches_by_path``), and the last line
+ingest and mesh phases', under ``launches_by_path``; E1's are the train
+phase's first 200-step run's), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is not 0 and no result line is printed; so does a machine without
 a CUDA card, or a directory without the repository's ``src/``.
@@ -300,6 +318,10 @@ LSTM_SOURCE = "src/repro_torch/kernels/csrc/lstm_scan.cu"
 LSTM_TPU_KERNEL = "src/repro/kernels/lstm_scan.py:62"
 TOWER_SOURCE = "src/repro_torch/kernels/csrc/conv_tower.cu"
 TOWER_TPU_KERNEL = "src/repro/kernels/conv1d_stack.py:98"
+EMBED_SOURCE = "src/repro_torch/kernels/csrc/embed_grad.cu"
+# base-train-b512's lookup: B=512 rows in a bucket of the ladder, the
+# 8,192-id vocabulary, E=64; rows of 14-94 real tokens, as `ops`
+EG_B, EG_V, EG_E, EG_LENS = 512, 8192, 64, (14, 94)
 
 
 def emit(obj) -> None:
@@ -484,8 +506,10 @@ def ptxas_usage(lib: str) -> dict:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels import _build, conv1d_stack, lstm_scan
-    libs = [conv1d_stack.LIB, lstm_scan.LIB, conv1d_stack.TOWER_LIB]
+    from repro_torch.kernels import _build, conv1d_stack, embed_grad, \
+        lstm_scan
+    libs = [conv1d_stack.LIB, lstm_scan.LIB, conv1d_stack.TOWER_LIB,
+            embed_grad.LIB]
     secs = _build.build_all(libs)
     ptxas = {lib: [ln.strip() for ln in _build.build_log(lib).splitlines()
                    if "registers" in ln or "spill" in ln] for lib in libs}
@@ -1448,6 +1472,7 @@ def phase_train(card: str) -> dict:
     from repro_torch.core.service import CostModelService
     from repro_torch.ir import dataset as DS
     from repro_torch.kernels import conv1d_stack as K
+    from repro_torch.kernels import embed_grad as EG
     from repro_torch.kernels import lstm_scan as K2
     t_phase = time.perf_counter()
     heads = CM.DEFAULT_HEADS
@@ -1545,10 +1570,14 @@ def phase_train(card: str) -> dict:
     try:
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
+            EG.embed_grad.launches = 0      # E1: one a training step
             full = TR.TrainEngine("conv1d", COSTMODEL_BASE, heads,
                                   ckpt_dir=os.path.join(tmp, "full"),
                                   **kw).fit(tr)
             full_s = time.perf_counter() - t0
+            e1_launches = EG.embed_grad.launches
+            check(e1_launches == kw["steps"], f"embed_grad ran "
+                  f"{e1_launches} times in {kw['steps']} steps")
             d = os.path.join(tmp, "killed")
             try:
                 TR.TrainEngine("conv1d", COSTMODEL_BASE, heads, ckpt_dir=d,
@@ -1573,6 +1602,7 @@ def phase_train(card: str) -> dict:
           "batch_size": 64, "first_loss": first, "last_loss": last,
           "resumed_steps": resumed.stats["steps"],
           "resume_max_abs_diff": resume_err, "seconds": full_s,
+          "embed_grad_launches": e1_launches,
           "eval": {t: {k: metrics[t][k] for k in ("rmse_norm",
                                                   "rmse_rel_pct")}
                    for t in heads}})
@@ -1644,7 +1674,146 @@ def phase_train(card: str) -> dict:
            "phase_seconds": time.perf_counter() - t_phase, "card": card}
     emit(out)
     return {**out, "f1": f1, "conv_serve": conv_serve,
-            "lstm_serve": lstm_serve}
+            "lstm_serve": lstm_serve, "e1_launches": e1_launches}
+
+
+def lookup_ids(rng, case: str, S: int):
+    """(EG_B, S) int32 ids of a bucket of width S: rows of EG_LENS real
+    tokens then PAD (``ragged``), the same with one id in 90% of the real
+    positions (``hot``: an op name that fills the batch), or uniform ids
+    with 95% PAD (``pad95``)."""
+    import numpy as np
+    ids = rng.integers(1, EG_V, (EG_B, S))
+    if case == "pad95":
+        ids[rng.random(ids.shape) < 0.95] = 0
+        return ids.astype(np.int32)
+    if case == "hot":
+        ids[rng.random(ids.shape) < 0.9] = 7
+    lens = rng.integers(EG_LENS[0], min(EG_LENS[1], S) + 1, (EG_B,))
+    ids[np.arange(S)[None, :] >= lens[:, None]] = 0
+    return ids.astype(np.int32)
+
+
+def lookup_limit(exact, count, mass, dtype, chunk: int):
+    """How far the kernel's sums may land from float64 ones: its longest
+    chain of dependent adds for an id of ``count`` rows (a chunk, one of
+    4 groups' share of the segment's chunks, the join of the groups)
+    x 2^-23 (twice float32's unit roundoff) x the id's sum of |rows|,
+    and for a bfloat16 result one rounding more, 2^-8 of the value."""
+    import torch
+    chain = chunk + torch.ceil((torch.ceil(count / chunk) + 1) / 4) + 5
+    tol = chain[:, None] * 2.0 ** -23 * mass
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * (exact.abs() + tol)
+    return tol
+
+
+def phase_kernels_embed() -> dict:
+    """E1, the conv1d lookup's backward (``embed_grad``), against its
+    plain version at base-train-b512's shapes, and its times beside the
+    plain version, PyTorch's embedding backward and autograd's
+    ``index_put_`` (the path it replaced)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import embed_grad as EG
+    from repro_torch.kernels.conv_tile_probe import time_queued
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(30)
+    worst = 0.0
+    for S in (32, 64, 128, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            for case in ("ragged", "hot", "pad95"):
+                ids = torch.from_numpy(lookup_ids(rng, case, S))
+                grad = torch.randn((EG_B, S, EG_E),
+                                   generator=torch.Generator().manual_seed(
+                                       S)).to(dtype)
+                got = EG.embed_grad(grad.to(dev), ids.to(dev), EG_V).cpu()
+                # the plain version in float64: exact at these counts
+                exact = EG.embed_grad_ref(grad.double(), ids, EG_V)
+                flat = ids.reshape(-1).long()
+                keep = flat != 0
+                count = torch.bincount(flat[keep], minlength=EG_V).double()
+                mass = EG.embed_grad_ref(grad.double().abs(), ids, EG_V)
+                tol = lookup_limit(exact, count, mass, dtype, EG.CHUNK)
+                err = float(((got.double() - exact).abs() / tol.clamp_min(
+                    1e-300)).max())
+                check(err <= 1.0 and not got[count == 0].any(),
+                      f"embed_grad S={S} {dtype} {case}: {err} of its limit")
+                # the limit can fail: the most frequent id without one chunk
+                top = int(count.argmax())
+                pos = (flat == top).nonzero().reshape(-1)[:EG.CHUNK]
+                dropped = grad.reshape(-1, EG_E)[pos].double().sum(0)
+                miss = float((dropped.abs() / tol[top]).max())
+                check(miss > 10.0, f"embed_grad S={S} {dtype} {case}: a "
+                      f"dropped chunk only {miss} of the limit")
+                again = EG.embed_grad(grad.to(dev), ids.to(dev), EG_V).cpu()
+                check(torch.equal(again, got), f"embed_grad S={S} {dtype} "
+                      f"{case}: two launches differ")
+                worst = max(worst, err)
+                c = {"S": S, "dtype": str(dtype).split(".")[-1],
+                     "case": case, "err_over_limit": err,
+                     "dropped_chunk_over_limit": miss,
+                     "top_id_rows": int(count[top]),
+                     "real_rows": int(keep.sum())}
+                emit({"phase": "kernels_embed", **c})
+
+    # times on the card, in turns, at the buckets the cell's rows fill
+    timings = {}
+    usage = ptxas_usage(EG.LIB)
+    for S in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            ids = torch.from_numpy(lookup_ids(rng, "ragged", S)).to(dev)
+            grad = torch.randn((EG_B, S, EG_E), device=dev).to(dtype)
+            flat = ids.reshape(-1).long()
+            masked = (grad * (ids != 0).to(dtype)[..., None]).reshape(
+                -1, EG_E)
+            keys, perm = torch.sort(ids.reshape(-1), stable=True)
+            out = torch.zeros((EG_V, EG_E), dtype=dtype, device=dev)
+            work = torch.empty(-(-ids.numel() // EG.CHUNK) * 2 * EG_E,
+                               device=dev)
+            entry = EG._entry(dtype)
+
+            def kernels_only():
+                stream = torch.cuda.current_stream().cuda_stream
+                entry(grad.data_ptr(), keys.data_ptr(), perm.data_ptr(),
+                      ids.numel(), EG_E, EG_V, out.data_ptr(),
+                      work.data_ptr(), work.nbytes, stream)
+
+            def index_put():
+                return torch.zeros((EG_V, EG_E), dtype=dtype,
+                                   device=dev).index_put_(
+                    (flat,), masked, accumulate=True)
+
+            def library():                  # padding_idx 0
+                return torch.ops.aten.embedding_dense_backward(
+                    grad, flat.view(ids.shape), EG_V, 0, False)
+
+            def op():
+                return EG.embed_grad(grad, ids, EG_V)
+            ms, plain_ms = time_pair(op, lambda: EG.embed_grad_ref(
+                grad, ids, EG_V))
+            k_ms, lib_ms = time_pair(kernels_only, library)
+            _, put_ms = time_pair(op, index_put, n_samples=5, reps=2)
+            # the card's time alone and the host's
+            dev_ms, host_ms = time_queued(op)
+            lib_dev_ms, lib_host_ms = time_queued(library)
+            # least bytes: the real positions' rows, the ids, the table
+            n_real = int((ids != 0).sum())
+            nbytes = (n_real * EG_E + EG_V * EG_E) * grad.element_size() \
+                + ids.numel() * ids.element_size()
+            b_ms = nbytes / PEAK_BYTES * 1e3
+            t = {"S": S, "dtype": str(dtype).split(".")[-1], "ms": ms,
+                 "kernel_ms": k_ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, "index_put_ms": put_ms,
+                 "device_ms": dev_ms, "host_ms": host_ms,
+                 "library_device_ms": lib_dev_ms,
+                 "library_host_ms": lib_host_ms,
+                 "bound_ms": b_ms, "bound_by": "bytes", "bytes": nbytes,
+                 "roofline_pct": 100.0 * b_ms / dev_ms, "real_rows": n_real,
+                 "ptxas": usage}
+            timings[(S, t["dtype"])] = t
+            emit({"phase": "kernels_embed", "case": "timing", **t})
+    return {"max_err_over_limit": worst, "timings": timings}
 
 
 # compiler phase: the reference fixture's corpus and training settings
@@ -3632,7 +3801,8 @@ def main() -> int:
     lstm = phase_kernels_lstm()
     serve_lstm = phase_serve_lstm(dev["nvidia_smi"])
     tower = phase_tower()
-    phase_train(dev["nvidia_smi"])
+    embed = phase_kernels_embed()
+    train = phase_train(dev["nvidia_smi"])
     compiler = phase_compiler(dev["nvidia_smi"])
     replicated = phase_replicated(dev["nvidia_smi"])
     phase_families(dev["nvidia_smi"])
@@ -3643,6 +3813,7 @@ def main() -> int:
     t64, t4, t1 = (kern["timings"][b] for b in (64, 4, 1))
     l64, l1 = lstm["timings"][64], lstm["timings"][1]
     w64, w1 = tower["timings"][64], tower["timings"][1]
+    e128 = embed["timings"][(128, "float32")]
     emit({"kernels": [{
         "name": "conv_forward_fused", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -3705,6 +3876,22 @@ def main() -> int:
         "device_ms": w64["device_ms"], "host_ms": w64["host_ms"],
         "b1": {k: w1[k] for k in ("ms", "plain_ms", "device_ms", "host_ms",
                                   "bound_ms", "bound_by", "plan")},
+        "card": dev["nvidia_smi"]}, {
+        "name": "embed_grad", "route": "cuda", "source": EMBED_SOURCE,
+        "replaces": None, "launches": train["e1_launches"],
+        "launches_by_path": {"train": train["e1_launches"]},
+        "max_err_over_limit": embed["max_err_over_limit"],
+        **{k: e128[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                "library_ms", "index_put_ms", "device_ms",
+                                "host_ms", "library_device_ms",
+                                "library_host_ms", "bound_ms", "bound_by",
+                                "roofline_pct", "ptxas")},
+        "library": "aten.embedding_dense_backward (padding_idx 0)",
+        "shape": {"B": EG_B, "S": 128, "V": EG_V, "E": EG_E},
+        "other": {f"S{S}_{d}": {k: t[k] for k in (
+            "ms", "kernel_ms", "plain_ms", "library_ms", "index_put_ms",
+            "device_ms", "host_ms", "bound_ms", "roofline_pct")}
+            for (S, d), t in embed["timings"].items()},
         "card": dev["nvidia_smi"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": torch.cuda.device_count()}})

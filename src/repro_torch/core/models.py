@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import embed_grad as EG
 from repro_torch.params import conv_init, fc_init, lstm_init, xformer_init
 from repro_torch.runtime import sharding as SH
 
@@ -196,9 +197,15 @@ def conv_encode(p, ids: torch.Tensor, *,
 
     The max-pool covers every position, pads included: the service's
     bucket ``pad_slack`` relies on exactly these semantics. The mask
-    follows the embedding dtype, so bf16 params run a bf16 tower."""
+    follows the embedding dtype, so bf16 params run a bf16 tower. A
+    plain table's masked lookup is ``kernels/embed_grad.py``'s op, whose
+    backward on the card is a kernel; a DTensor table's takes
+    ``gather_rows``, which keeps the table's split."""
     emb = p["emb"]
-    x = SH.gather_rows(emb, ids) * _mask(ids).to(emb.dtype)[..., None]
+    if isinstance(emb, SH.DTensor) or isinstance(ids, SH.DTensor):
+        x = SH.gather_rows(emb, ids) * _mask(ids).to(emb.dtype)[..., None]
+    else:
+        x = EG.masked_gather(emb, ids)
     for layer in p["convs"]:
         x = torch.relu(conv1d(x, layer["w"], layer["b"]))
     x = x.amax(dim=1)                            # MaxPool1D over sequence

@@ -1,10 +1,11 @@
 """The port on an NVIDIA card: the CUDA kernels (the fused conv forward,
-the LSTM recurrence through both its entries, the masked conv tower)
-against their plain versions, rows bit-identical across the batch
-ladder, and the services and server on the card. Every case is marked
-``chip`` and skips where ``torch.cuda.is_available()`` is False. This
-file imports neither JAX nor the reference package, so it runs on a
-machine that has only the port's dependencies:
+the LSTM recurrence through both its entries, the masked conv tower, the
+conv1d lookup's backward) against their plain versions, rows
+bit-identical across the batch ladder, and the services and server on
+the card. Every case is marked ``chip`` and skips where
+``torch.cuda.is_available()`` is False. This file imports neither JAX
+nor the reference package, so it runs on a machine that has only the
+port's dependencies:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_chip.py
 
@@ -37,6 +38,7 @@ from repro_torch.ir import dataset as DS
 from repro_torch.ir import frontdoor as FD
 from repro_torch.ir import printer, samplers
 from repro_torch.kernels import conv1d_stack as K
+from repro_torch.kernels import embed_grad as EG
 from repro_torch.kernels import lstm_scan as K2
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as REF
@@ -706,6 +708,149 @@ def test_engine_resume_on_card_is_exact(cuda, tmp_path):
         assert b.device.type == "cuda"
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------- the conv1d lookup's backward
+# base-train-b512's shapes: B=512 rows padded to a bucket of the ladder
+# (32, 64, 128, 256), the 8,192-id vocabulary, E=64
+EG_B, EG_V, EG_E = 512, 8192, 64
+EG_CASES = ["pad0", "pad50", "pad95", "hot90", "ragged"]
+
+
+def lookup_ids(case, S, seed=0):
+    """(B, S) int32 ids: uniform with a PAD share of 0, 1/2 or 19/20;
+    half PAD with one id in 90% of the rest (an op name that fills the
+    batch); or bucketed rows, PAD after each row's length."""
+    rng = np.random.default_rng(seed)
+    if case == "ragged":
+        return torch.from_numpy(ragged_ids(rng, EG_B, S, EG_V))
+    pad, hot = {"pad0": (0.0, 0.0), "pad50": (0.5, 0.0),
+                "pad95": (0.95, 0.0), "hot90": (0.5, 0.9)}[case]
+    ids = rng.integers(1, EG_V, (EG_B, S))
+    ids[rng.random(ids.shape) < hot] = 7
+    ids[rng.random(ids.shape) < pad] = 0
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+def lookup_grad(ids, dtype, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((*ids.shape, EG_E), generator=g).to(dtype)
+
+
+def exact_sums(grad, ids):
+    """Each id's sum of rows in float64 (exact for these counts), its
+    row count and its sum of |rows|, PAD's row left empty."""
+    flat, rows = ids.reshape(-1).long(), grad.reshape(-1, EG_E).double()
+    keep = flat != 0
+    zeros = torch.zeros(EG_V, EG_E, dtype=torch.float64)
+    count = torch.zeros(EG_V, dtype=torch.float64).index_add_(
+        0, flat[keep], torch.ones(int(keep.sum()), dtype=torch.float64))
+    return (zeros.clone().index_add_(0, flat[keep], rows[keep]), count,
+            zeros.index_add_(0, flat[keep], rows[keep].abs()))
+
+
+def sum_limit(exact, count, mass, dtype, chain):
+    """How far a sum may land from ``exact`` when its longest chain of
+    dependent adds is ``chain`` (a (V,) tensor): chain x 2^-23 x the sum
+    of |rows| (twice float32's unit roundoff; 2^-52 for float64), and
+    for a bfloat16 result one more rounding, 2^-8 of the value."""
+    eps = 2.0 ** -52 if dtype == torch.float64 else 2.0 ** -23
+    tol = chain[:, None] * eps * mass
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * (exact.abs() + tol)
+    return tol
+
+
+def kernel_chain(count):
+    """The kernel's longest chain for an id of ``count`` rows: a chunk of
+    EG.CHUNK rows, one group's share of the segment's chunks (4 groups
+    a block, a segment over ceil(count / CHUNK) + 1 chunks at most),
+    and the join of the 4 groups' sums to the first chunk's."""
+    chunks = torch.ceil(count / EG.CHUNK) + 1
+    return EG.CHUNK + torch.ceil(chunks / 4) + 5
+
+
+@pytest.mark.parametrize("case", EG_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("S", [32, 64, 128, 256])
+def test_embed_grad_matches_plain(cuda, S, dtype, case):
+    """The kernel and the plain version against float64 sums: the
+    kernel within its own longest chain of adds (a chunk, a group's
+    partials, the join) x eps x the sum of |rows|, the plain version
+    (one chain a segment) within count x eps x the same. A sum missing
+    one chunk of the most frequent id's rows misses the kernel's limit,
+    so a dropped or doubled chunk fails. PAD's row and the rows of
+    absent ids are exactly zero."""
+    ids = lookup_ids(case, S)
+    grad = lookup_grad(ids, dtype)
+    got = EG.embed_grad(grad.to(cuda), ids.to(cuda), EG_V).cpu()
+    want = EG.embed_grad_ref(grad, ids, EG_V)
+    assert got.dtype == dtype and got.shape == (EG_V, EG_E)
+    exact, count, mass = exact_sums(grad, ids)
+    tol = sum_limit(exact, count, mass, dtype, kernel_chain(count))
+    assert bool(((got.double() - exact).abs() <= tol).all())
+    plain_tol = sum_limit(exact, count, mass, dtype, count)
+    assert bool(((want.double() - exact).abs() <= plain_tol).all())
+    assert not got[count == 0].any()
+    # the limit can fail: one chunk of the most frequent id left out
+    flat = ids.reshape(-1).long()
+    top = int(count.argmax())
+    pos = (flat == top).nonzero().reshape(-1)[:EG.CHUNK]
+    short = exact[top] - grad.reshape(-1, EG_E)[pos].double().sum(0)
+    assert not bool(((short - exact[top]).abs() <= tol[top]).all())
+
+
+def test_embed_grad_same_bits_every_launch_and_stream(cuda):
+    for dtype in (torch.float32, torch.bfloat16, torch.float64):
+        ids = lookup_ids("hot90", 128).to(cuda)
+        grad = lookup_grad(ids, dtype).to(cuda)
+        first = EG.embed_grad(grad, ids, EG_V)
+        assert torch.equal(EG.embed_grad(grad, ids, EG_V), first)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            other = EG.embed_grad(grad, ids, EG_V)
+        torch.cuda.current_stream().wait_stream(side)
+        assert torch.equal(other, first)
+
+
+def test_masked_gather_backward_needs_no_sync(cuda):
+    """The op's backward, sort and kernel included, under
+    set_sync_debug_mode("error"): nothing in it makes the host wait."""
+    ids = lookup_ids("ragged", 128).to(cuda)
+    table = torch.randn(EG_V, EG_E, device=cuda, requires_grad=True)
+    grad = lookup_grad(ids, torch.float32).to(cuda)
+    torch.autograd.grad(EG.masked_gather(table, ids), table, grad)  # warm
+    out = EG.masked_gather(table, ids)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, = torch.autograd.grad(out, table, grad)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, EG.embed_grad(grad, ids, EG_V))
+
+
+def test_masked_gather_counts_one_launch_a_backward(cuda):
+    """The forward launches nothing of the kernel's, each backward one,
+    and a conv1d training step on the card goes through it once."""
+    ids = lookup_ids("pad50", 64).to(cuda)
+    table = torch.randn(EG_V, EG_E, device=cuda, requires_grad=True)
+    grad = lookup_grad(ids, torch.float32).to(cuda)
+    before = EG.embed_grad.launches
+    out = EG.masked_gather(table, ids)
+    assert EG.embed_grad.launches == before
+    for i in range(3):
+        torch.autograd.grad(out, table, grad, retain_graph=True)
+        assert EG.embed_grad.launches == before + i + 1
+    cfg = CFGS.COSTMODEL_BASE
+    params = P.from_numpy(seeded_params(cfg, DEFAULT_HEADS, 0), cuda)
+    y = torch.zeros((EG_B, len(DEFAULT_HEADS)), device=cuda)
+    loss_fn = TR.make_loss_fn(CM.conv_apply, DEFAULT_HEADS)
+    before = EG.embed_grad.launches
+    TR.value_and_grad(loss_fn, params, ids, y)
+    assert EG.embed_grad.launches == before + 1
 
 
 # ------------------------------------------------- the replicated tier

@@ -1715,6 +1715,7 @@ def phase_kernels_embed() -> dict:
     ``index_put_`` (the path it replaced)."""
     import numpy as np
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import embed_grad as EG
     from repro_torch.kernels.conv_tile_probe import time_queued
     dev = torch.device("cuda")
@@ -1771,7 +1772,8 @@ def phase_kernels_embed() -> dict:
             out = torch.zeros((EG_V, EG_E), dtype=dtype, device=dev)
             work = torch.empty(-(-ids.numel() // EG.CHUNK) * 2 * EG_E,
                                device=dev)
-            entry = EG._entry(dtype)
+            entry = _build.bind(_build.load(EG.LIB), EG._ENTRY[dtype],
+                                EG._ARGS)
 
             def kernels_only():
                 stream = torch.cuda.current_stream().cuda_stream

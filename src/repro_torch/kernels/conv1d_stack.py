@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Sequence
 
 import torch
@@ -29,7 +28,6 @@ from repro_torch.kernels import ref as REF
 LIB = "conv_forward"
 TOWER_LIB = "conv_tower"
 
-_count_lock = threading.Lock()
 _ENTRY = {torch.float32: "conv_forward_f32",
           torch.bfloat16: "conv_forward_bf16"}
 _TOWER_ENTRY = {torch.float32: "conv_tower_f32",
@@ -37,19 +35,29 @@ _TOWER_ENTRY = {torch.float32: "conv_tower_f32",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 _LLP = ctypes.POINTER(ctypes.c_longlong)
-_PLAN_ERRORS = {
-    -1: "layer counts or sizes the kernel does not take (see kMaxConv "
-        "in csrc/conv_tile.cuh and kMaxFc in csrc/conv_forward.cu)",
-    -2: "activations and a staged tap of weights that do not fit in "
-        "shared memory even at one position per tile"}
-
-
-def _plan_error(code: int, seq, embed, filter_sizes, channels,
-                fc_dims) -> ValueError:
-    return ValueError(
-        f"conv_forward_fused: {_PLAN_ERRORS[code]} (seq {seq}, embed "
-        f"{embed}, filters {tuple(filter_sizes)}, channels "
-        f"{tuple(channels)}, fc {tuple(fc_dims)})")
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_ARGS = (_P, _I, _I, _P, _I, _I, _I, _PP, _PP, _IP, _IP, _I, _PP, _PP, _IP,
+         _P, _P, _I, _P, _P, ctypes.c_size_t, _P)
+_TOWER_ARGS = (_P, _P, _I, _I, _I, _I, _PP, _PP, _IP, _IP, _P, _P,
+               ctypes.c_size_t, _P)
+_SMEM = ("activations and a staged tap of weights that do not fit in "
+         "shared memory even at one position per tile")
+_SIZES = " (seq {}, embed {}, filters {}, channels {}, fc {})"
+_TOWER_SIZES = " (seq {}, channels in {}, filters {}, channels {})"
+_WORKSPACE = "kernel launch failed (-3): workspace smaller than the plan's"
+# each library's own return codes (its plan's and its launch's): the
+# exception and its message, formatted with the sizes
+_ERRORS = {
+    -1: (ValueError, "conv_forward_fused: layer counts or sizes the kernel "
+         "does not take (see kMaxConv in csrc/conv_tile.cuh and kMaxFc in "
+         "csrc/conv_forward.cu)" + _SIZES),
+    -2: (ValueError, "conv_forward_fused: " + _SMEM + _SIZES),
+    -3: (RuntimeError, f"{LIB} {_WORKSPACE}")}
+_TOWER_ERRORS = {
+    -1: (ValueError, "conv1d_stack_fused: layer counts or sizes the kernel "
+         "does not take (see kMaxConv in csrc/conv_tile.cuh)" + _TOWER_SIZES),
+    -2: (ValueError, "conv1d_stack_fused: " + _SMEM + _TOWER_SIZES),
+    -3: (RuntimeError, f"{TOWER_LIB} {_WORKSPACE}")}
 
 
 PLAN_KEYS = ("tile", "n_tiles", "blocks", "smem", "workspace")
@@ -71,14 +79,13 @@ def plan(batch: int, seq: int, embed: int, filter_sizes: Sequence[int],
 
 @functools.lru_cache(maxsize=1024)
 def _forward_plan(batch, seq, embed, filter_sizes, channels, fc_dims):
-    fn = _build.load(LIB).conv_forward_plan
-    fn.argtypes = [_I, _I, _I, _I, _IP, _IP, _I, _IP, _LLP]
-    fn.restype = ctypes.c_int
+    fn = _build.bind(_build.load(LIB), "conv_forward_plan",
+                     (_I, _I, _I, _I, _IP, _IP, _I, _IP, _LLP))
     info = (ctypes.c_longlong * len(PLAN_KEYS))()
     rc = fn(batch, seq, embed, len(filter_sizes), _ints(filter_sizes),
             _ints(channels), len(fc_dims), _ints(fc_dims), info)
-    if rc != 0:
-        raise _plan_error(rc, seq, embed, filter_sizes, channels, fc_dims)
+    _build.check(LIB, rc, _ERRORS, (seq, embed, filter_sizes, channels,
+                                    fc_dims))
     return tuple(info)
 
 
@@ -105,36 +112,6 @@ def _workspace(info, device) -> torch.Tensor:
     that stream), so launches on two streams never share one."""
     return torch.empty(max(info[PLAN_KEYS.index("workspace")], 16),
                        dtype=torch.uint8, device=device)
-
-
-def _on_device(device: torch.device, launch):
-    """``launch(stream)`` with the raw handle of ``device``'s current
-    stream, ``device`` being the current device for the call. The raw
-    handle and the guard only where it is needed: a Stream object and a
-    device guard on every launch cost ~10 us of host time on the H100's
-    host (``python -m repro_torch.kernels.conv_tile_probe``), where a
-    served batch's kernel takes ~40 us."""
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    if device.index == torch.cuda.current_device():
-        return launch(stream)
-    with torch.cuda.device(device):
-        return launch(stream)
-
-
-def _launch_error(lib: str, rc: int) -> str:
-    return _build.error_string(lib, rc) if rc > 0 else \
-        "workspace smaller than the plan's"
-
-
-def _entry(dtype: torch.dtype):
-    """The library's ctypes entry point for ``dtype`` params."""
-    fn = getattr(_build.load(LIB), _ENTRY[dtype])
-    if fn.argtypes is None:
-        pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [_P, _I, _I, _P, _I, _I, _I, pp, pp, _IP, _IP, _I,
-                       pp, pp, _IP, _P, _P, _I, _P, _P, ctypes.c_size_t, _P]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _check(ids, emb, conv_weights, conv_biases, fc_weights, fc_biases,
@@ -245,21 +222,16 @@ def _launch(ids, emb, conv_weights, conv_biases, fc_weights, fc_biases,
     if B == 0:
         return out
     work = _workspace(info, ids.device)
-    fn = _entry(emb.dtype)
-    rc = _on_device(ids.device, lambda stream: fn(
-        ids.data_ptr(), B, S, emb.data_ptr(), emb.shape[0], E, len(fs),
-        _ptr_array(_ptrs(conv_weights)), _ptr_array(_ptrs(conv_biases)),
-        _ints(fs), _ints(c_out), len(fc_out), _ptr_array(_ptrs(fc_weights)),
-        _ptr_array(_ptrs(fc_biases)), _ints(fc_out), head_w.data_ptr(),
-        head_b.data_ptr(), head_w.shape[1], out.data_ptr(), work.data_ptr(),
-        work.numel(), stream))
-    if rc in _PLAN_ERRORS:
-        raise _plan_error(rc, S, E, fs, c_out, fc_out)
-    if rc != 0:
-        raise RuntimeError(f"conv_forward kernel launch failed ({rc}): "
-                           f"{_launch_error(LIB, rc)}")
-    with _count_lock:
-        conv_forward_fused.launches += 1
+    _build.launch(
+        conv_forward_fused, LIB,
+        _build.bind(_build.load(LIB), _ENTRY[emb.dtype], _ARGS), ids.device,
+        (ids.data_ptr(), B, S, emb.data_ptr(), emb.shape[0], E, len(fs),
+         _ptr_array(_ptrs(conv_weights)), _ptr_array(_ptrs(conv_biases)),
+         _ints(fs), _ints(c_out), len(fc_out), _ptr_array(_ptrs(fc_weights)),
+         _ptr_array(_ptrs(fc_biases)), _ints(fc_out), head_w.data_ptr(),
+         head_b.data_ptr(), head_w.shape[1], out.data_ptr(),
+         work.data_ptr(), work.numel()),
+        _ERRORS, (S, E, fs, c_out, fc_out))
     return out
 
 
@@ -267,20 +239,6 @@ conv_forward_fused.launches = 0
 
 
 # ------------------------------------------------------------------ tower
-_TOWER_PLAN_ERRORS = {
-    -1: "layer counts or sizes the kernel does not take (see kMaxConv in "
-        "csrc/conv_tile.cuh)",
-    -2: _PLAN_ERRORS[-2]}
-
-
-def _tower_plan_error(code: int, seq, c_in, filter_sizes,
-                      channels) -> ValueError:
-    return ValueError(
-        f"conv1d_stack_fused: {_TOWER_PLAN_ERRORS[code]} (seq {seq}, "
-        f"channels in {c_in}, filters {tuple(filter_sizes)}, channels "
-        f"{tuple(channels)})")
-
-
 def tower_plan(batch: int, seq: int, c_in: int, filter_sizes: Sequence[int],
                channels: Sequence[int]) -> dict:
     """The tower kernel's tile plan, with :func:`plan`'s keys (the same
@@ -293,25 +251,14 @@ def tower_plan(batch: int, seq: int, c_in: int, filter_sizes: Sequence[int],
 
 @functools.lru_cache(maxsize=1024)
 def _tower_plan(batch, seq, c_in, filter_sizes, channels):
-    fn = _build.load(TOWER_LIB).conv_tower_plan
-    fn.argtypes = [_I, _I, _I, _I, _IP, _IP, _LLP]
-    fn.restype = ctypes.c_int
+    fn = _build.bind(_build.load(TOWER_LIB), "conv_tower_plan",
+                     (_I, _I, _I, _I, _IP, _IP, _LLP))
     info = (ctypes.c_longlong * len(PLAN_KEYS))()
     rc = fn(batch, seq, c_in, len(filter_sizes), _ints(filter_sizes),
             _ints(channels), info)
-    if rc != 0:
-        raise _tower_plan_error(rc, seq, c_in, filter_sizes, channels)
+    _build.check(TOWER_LIB, rc, _TOWER_ERRORS,
+                 (seq, c_in, filter_sizes, channels))
     return tuple(info)
-
-
-def _tower_entry(dtype: torch.dtype):
-    fn = getattr(_build.load(TOWER_LIB), _TOWER_ENTRY[dtype])
-    if fn.argtypes is None:
-        pp = ctypes.POINTER(ctypes.c_void_p)
-        fn.argtypes = [_P, _P, _I, _I, _I, _I, pp, pp, _IP, _IP, _P, _P,
-                       ctypes.c_size_t, _P]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_tower(x, weights, biases, mask) -> None:
@@ -377,18 +324,14 @@ def _launch_tower(x, weights, biases, mask) -> torch.Tensor:
     if B == 0:
         return out
     work = _workspace(info, x.device)
-    fn = _tower_entry(x.dtype)
-    rc = _on_device(x.device, lambda stream: fn(
-        x.data_ptr(), mask.data_ptr(), B, S, c_in, len(fs),
-        _ptr_array(_ptrs(weights)), _ptr_array(_ptrs(biases)), _ints(fs),
-        _ints(c_out), out.data_ptr(), work.data_ptr(), work.numel(), stream))
-    if rc in _TOWER_PLAN_ERRORS:
-        raise _tower_plan_error(rc, S, c_in, fs, c_out)
-    if rc != 0:
-        raise RuntimeError(f"conv_tower kernel launch failed ({rc}): "
-                           f"{_launch_error(TOWER_LIB, rc)}")
-    with _count_lock:
-        conv1d_stack_fused.launches += 1
+    _build.launch(
+        conv1d_stack_fused, TOWER_LIB,
+        _build.bind(_build.load(TOWER_LIB), _TOWER_ENTRY[x.dtype],
+                    _TOWER_ARGS), x.device,
+        (x.data_ptr(), mask.data_ptr(), B, S, c_in, len(fs),
+         _ptr_array(_ptrs(weights)), _ptr_array(_ptrs(biases)), _ints(fs),
+         _ints(c_out), out.data_ptr(), work.data_ptr(), work.numel()),
+        _TOWER_ERRORS, (S, c_in, fs, c_out))
     return out
 
 

@@ -21,8 +21,6 @@ wait for the card. For tensors on the CPU it runs its plain version,
 from __future__ import annotations
 
 import ctypes
-import functools
-import threading
 
 import torch
 
@@ -31,10 +29,12 @@ from repro_torch.kernels import _build
 LIB = "embed_grad"
 CHUNK = 64  # sorted positions a block sums: kChunk in csrc/embed_grad.cu
 
-_count_lock = threading.Lock()
 _ENTRY = {torch.float32: "embed_grad_f32", torch.bfloat16: "embed_grad_bf16",
           torch.float64: "embed_grad_f64"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = (_P, _P, _P, _I, _I, _I, _P, _P, ctypes.c_size_t, _P)
+_ERRORS = {-1: (RuntimeError, "embed_grad kernel launch failed (-1): "
+                "workspace smaller than the plan's")}
 
 
 class MaskedGather(torch.autograd.Function):
@@ -117,21 +117,10 @@ def embed_grad(grad: torch.Tensor, ids: torch.Tensor,
     return _launch(grad, ids, vocab)
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(_build.load(LIB), _ENTRY[dtype])
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P, _P, ctypes.c_size_t, _P]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(grad: torch.Tensor, ids: torch.Tensor,
             vocab: int) -> torch.Tensor:
     """Sort the ids and launch the kernel on checked CUDA tensors (no
     checks here: call :func:`embed_grad`). Counts the launch."""
-    # imported here: conv1d_stack's plain versions import core.models,
-    # which imports this module
-    from repro_torch.kernels.conv1d_stack import _launch_error, _on_device
     width, n = grad.shape[-1], ids.numel()
     out = torch.zeros((vocab, width), dtype=grad.dtype, device=grad.device)
     if n == 0 or width == 0:
@@ -140,15 +129,11 @@ def _launch(grad: torch.Tensor, ids: torch.Tensor,
     # two slots of partial sums a chunk (the kernel refuses fewer bytes)
     work = torch.empty(-(-n // CHUNK) * 2 * width,
                        dtype=_acc_dtype(grad.dtype), device=grad.device)
-    fn = _entry(grad.dtype)
-    rc = _on_device(grad.device, lambda stream: fn(
-        grad.data_ptr(), keys.data_ptr(), perm.data_ptr(), n, width, vocab,
-        out.data_ptr(), work.data_ptr(), work.nbytes, stream))
-    if rc != 0:
-        raise RuntimeError(f"embed_grad kernel launch failed ({rc}): "
-                           f"{_launch_error(LIB, rc)}")
-    with _count_lock:
-        embed_grad.launches += 1
+    _build.launch(
+        embed_grad, LIB, _build.bind(_build.load(LIB), _ENTRY[grad.dtype],
+                                     _ARGS), grad.device,
+        (grad.data_ptr(), keys.data_ptr(), perm.data_ptr(), n, width,
+         vocab, out.data_ptr(), work.data_ptr(), work.nbytes), _ERRORS)
     return out
 
 

@@ -22,7 +22,7 @@ the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import threading
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -32,19 +32,22 @@ from repro_torch.kernels import ref as REF
 
 LIB = "lstm_scan"
 
-_count_lock = threading.Lock()
 _ENTRY = {torch.float32: "lstm_scan_f32", torch.bfloat16: "lstm_scan_bf16"}
 _IDS_ENTRY = {torch.float32: "lstm_scan_ids_f32",
               torch.bfloat16: "lstm_scan_ids_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)
+_IDS_ARGS = (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)
+# the library's own return code, formatted with (H, kMaxHidden)
+_ERRORS = {-1: (ValueError, "lstm_scan: hidden size {} is above the "
+                "kernel's limit kMaxHidden = {} (csrc/lstm_scan.cu)")}
 
 
+@functools.lru_cache(maxsize=None)
 def max_hidden() -> int:
     """The largest hidden size the kernel takes (``kMaxHidden`` in
     ``csrc/lstm_scan.cu``; it asks the built library)."""
-    fn = _build.load(LIB).lstm_scan_max_hidden
-    fn.restype = ctypes.c_int
-    return fn()
+    return _build.bind(_build.load(LIB), "lstm_scan_max_hidden", ())()
 
 
 def plan(hidden: int) -> Dict[str, int]:
@@ -54,23 +57,14 @@ def plan(hidden: int) -> Dict[str, int]:
     in registers (for four gate columns), ``units`` hidden units a block,
     ``threads`` a block.
     Raises ValueError for a size the kernel does not take."""
-    fn = _build.load(LIB).lstm_scan_plan
-    fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
+    fn = _build.bind(_build.load(LIB), "lstm_scan_plan",
+                     (_I, ctypes.POINTER(ctypes.c_int)))
     out = (ctypes.c_int * 4)()
     if fn(hidden, out) != 0:
         raise ValueError(f"lstm_scan: hidden size {hidden} is outside the "
                          f"kernel's range [1, kMaxHidden = {max_hidden()}] "
                          f"(csrc/lstm_scan.cu)")
     return dict(zip(("ctas", "rows", "units", "threads"), out))
-
-
-def _entry(names, dtype: torch.dtype, argtypes):
-    fn = getattr(_build.load(LIB), names[dtype])
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_common(lead, wh, heads, gates_name: str) -> int:
@@ -176,29 +170,6 @@ def lstm_scan_ids(table: torch.Tensor, ids: torch.Tensor, wh: torch.Tensor,
     return _launch_ids(table, ids, wh, *heads)
 
 
-def _outputs(B: int, hidden: int, head_w, device):
-    out = torch.empty((B, hidden), dtype=torch.float32, device=device)
-    if head_w is None:
-        return out, None, 0
-    n_heads = int(head_w.shape[1])
-    return out, torch.empty((B, n_heads), dtype=torch.float32,
-                            device=device), n_heads
-
-
-def _finish(rc: int, hidden: int, B: int, counted, out, pred):
-    if rc == -1:
-        raise ValueError(
-            f"lstm_scan: hidden size {hidden} is above the kernel's "
-            f"limit kMaxHidden = {max_hidden()} (csrc/lstm_scan.cu)")
-    if rc != 0:
-        raise RuntimeError(f"lstm_scan kernel launch failed ({rc}): "
-                           f"{_build.error_string(LIB, rc)}")
-    if B > 0:
-        with _count_lock:
-            counted.launches += 1
-    return out if pred is None else pred
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -206,33 +177,37 @@ def _ptr(t):
 def _launch(xw, mask, wh, head_w=None, head_b=None) -> torch.Tensor:
     """Launch the kernel's xw entry on checked CUDA tensors (no checks
     here: call :func:`lstm_scan_fused`). Counts the launch."""
-    B, S, _ = xw.shape
-    hidden = int(wh.shape[0])
-    out, pred, n_heads = _outputs(B, hidden, head_w, xw.device)
-    fn = _entry(_ENTRY, xw.dtype,
-                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
-    with torch.cuda.device(xw.device):
-        stream = torch.cuda.current_stream(xw.device).cuda_stream
-        rc = fn(xw.data_ptr(), mask.data_ptr(), wh.data_ptr(),
-                _ptr(head_w), _ptr(head_b), n_heads, B, S, hidden,
-                out.data_ptr(), _ptr(pred), stream)
-    return _finish(rc, hidden, B, lstm_scan_fused, out, pred)
+    return _run(lstm_scan_fused, _ENTRY, _ARGS, xw, xw.shape[:2],
+                (xw.data_ptr(), mask.data_ptr()), wh, head_w, head_b)
 
 
 def _launch_ids(table, ids, wh, head_w=None, head_b=None) -> torch.Tensor:
     """Launch the kernel's ids entry on checked CUDA tensors (no checks
     here: call :func:`lstm_scan_ids`). Counts the launch."""
-    B, S = ids.shape
-    hidden = int(wh.shape[0])
-    out, pred, n_heads = _outputs(B, hidden, head_w, table.device)
-    fn = _entry(_IDS_ENTRY, table.dtype,
-                [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P])
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = fn(table.data_ptr(), ids.data_ptr(), int(table.shape[0]),
-                wh.data_ptr(), _ptr(head_w), _ptr(head_b), n_heads, B, S,
-                hidden, out.data_ptr(), _ptr(pred), stream)
-    return _finish(rc, hidden, B, lstm_scan_ids, out, pred)
+    return _run(lstm_scan_ids, _IDS_ENTRY, _IDS_ARGS, table, ids.shape,
+                (table.data_ptr(), ids.data_ptr(), int(table.shape[0])),
+                wh, head_w, head_b)
+
+
+def _run(counted, entries, arg_types, lead, shape, lead_args, wh, head_w,
+         head_b) -> torch.Tensor:
+    """One launch of the entry for ``lead``'s dtype, its own arguments
+    ``lead_args`` first, on (B, S) = ``shape``; the final h, or the
+    heads' predictions."""
+    (B, S), hidden = shape, int(wh.shape[0])
+    out = torch.empty((B, hidden), dtype=torch.float32, device=lead.device)
+    n_heads = 0 if head_w is None else int(head_w.shape[1])
+    pred = None if head_w is None else torch.empty(
+        (B, n_heads), dtype=torch.float32, device=lead.device)
+    # at B = 0 the entry checks H and launches nothing, so counts nothing
+    _build.launch(
+        counted if B else None, LIB,
+        _build.bind(_build.load(LIB), entries[lead.dtype], arg_types),
+        lead.device,
+        (*lead_args, wh.data_ptr(), _ptr(head_w), _ptr(head_b), n_heads, B,
+         S, hidden, out.data_ptr(), _ptr(pred)),
+        _ERRORS, (hidden, max_hidden()))
+    return out if pred is None else pred
 
 
 lstm_scan_fused.launches = 0

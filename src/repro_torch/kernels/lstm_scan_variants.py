@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -65,10 +64,6 @@ VARIANTS = {
     "no_h_product": [("for (int r = 0; r < kSlice; r += 4) {",
                       "for (int r = 0; r < 0; r += 4) {")],
 }
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             *[ctypes.c_int] * 4, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p]
 
 
 def emit(obj) -> None:
@@ -114,13 +109,9 @@ def build_variant(source: str, name: str):
     out_dir.mkdir(parents=True, exist_ok=True)
     cu, so = out_dir / f"{name}.cu", out_dir / f"{name}.so"
     cu.write_text(text)
-    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                           str(so), str(cu)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"variant {name} build: {proc.stderr}")
-    fn = ctypes.CDLL(str(so)).lstm_scan_ids_f32
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    return name, fn
+    _build._compile(cu, so)
+    return name, _build.bind(ctypes.CDLL(str(so)), "lstm_scan_ids_f32",
+                             K2._IDS_ARGS)
 
 
 def long_ids(rng, B: int, S: int, vocab: int) -> np.ndarray:
@@ -171,11 +162,11 @@ def main() -> int:
                   "longest_row": longest})
         for name, fn in fns.items():
             def variant(fn=fn):
-                rc = fn(table.data_ptr(), ids.data_ptr(), V, wh.data_ptr(),
-                        None, None, 0, B, S, H, out.data_ptr(), None,
-                        torch.cuda.current_stream().cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(f"variant {name} launch: {rc}")
+                _build.launch(None, K2.LIB, fn, table.device,
+                              (table.data_ptr(), ids.data_ptr(), V,
+                               wh.data_ptr(), None, None, 0, B, S, H,
+                               out.data_ptr(), None), K2._ERRORS,
+                              (H, K2.max_hidden()))
             variant()
             err = float((out - want).abs().max())
             v_ms, k_ms = time_pair(variant, shipped)

@@ -22,6 +22,7 @@ from repro_torch import params as P
 from repro_torch.configs import costmodel as T_CFG
 from repro_torch.kernels import _build
 from repro_torch.kernels import conv1d_stack as K
+from repro_torch.kernels import embed_grad as EG
 from repro_torch.kernels import lstm_scan as K2
 from repro_torch.kernels import ops as T_OPS
 from repro_torch.kernels import ref as T_REF
@@ -626,3 +627,134 @@ def test_every_kernel_source_ships_as_package_data():
     # the build compiles csrc/<name>.cu and hashes csrc/*.cuh
     for p in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
         assert p.relative_to(pkg).as_posix() in files
+
+
+# ------------------------------------------- the launch seam (_build.py)
+STREAM = 0x5EA1                  # the stubbed current stream's raw handle
+
+
+def _seam_conv_forward(B):
+    E, C, F = 4, 6, 5
+    return K._launch(torch.ones((B, 8), dtype=torch.int32),
+                     torch.zeros((16, E)), [torch.zeros((2, E, C))],
+                     [torch.zeros(C)], [torch.zeros((C, F))],
+                     [torch.zeros(F)], torch.zeros((F, 3)), torch.zeros(3))
+
+
+def _seam_conv_tower(B):
+    return K._launch_tower(torch.zeros((B, 8, 4)), [torch.zeros((2, 4, 6))],
+                           [torch.zeros(6)], torch.ones((B, 8)))
+
+
+def _seam_lstm_scan(B):
+    return K2._launch(torch.zeros((B, 8, 16)), torch.ones((B, 8)),
+                      torch.zeros((4, 16)))
+
+
+def _seam_lstm_scan_ids(B):
+    return K2._launch_ids(torch.zeros((16, 16)),
+                          torch.ones((B, 8), dtype=torch.int32),
+                          torch.zeros((4, 16)))
+
+
+def _seam_embed_grad(B):
+    return EG._launch(torch.zeros((B, 8, 4)),
+                      torch.ones((B, 8), dtype=torch.int32), 16)
+
+
+# wrapper -> (its launch on B rows, the counted op, its library, its entry)
+SEAM = {
+    "conv_forward": (_seam_conv_forward, K.conv_forward_fused, K.LIB,
+                     "conv_forward_f32"),
+    "conv_tower": (_seam_conv_tower, K.conv1d_stack_fused, K.TOWER_LIB,
+                   "conv_tower_f32"),
+    "lstm_scan": (_seam_lstm_scan, K2.lstm_scan_fused, K2.LIB,
+                  "lstm_scan_f32"),
+    "lstm_scan_ids": (_seam_lstm_scan_ids, K2.lstm_scan_ids, K2.LIB,
+                      "lstm_scan_ids_f32"),
+    "embed_grad": (_seam_embed_grad, EG.embed_grad, EG.LIB,
+                   "embed_grad_f32"),
+}
+
+
+@pytest.fixture
+def seam(monkeypatch):
+    """The wrappers' launch functions on CPU tensors with the card
+    stubbed: ``calls[name]`` records each call of an entry, which
+    returns ``rc[name]`` (0 unless set); the plan entries are stubbed
+    with what the launches need of them."""
+    calls, rc = {}, {}
+
+    def bind(lib, name, argtypes):
+        def entry(*args):
+            calls.setdefault(name, []).append(args)
+            return rc.get(name, 0)
+        return entry
+    monkeypatch.setattr(_build, "load", lambda name: name)
+    monkeypatch.setattr(_build, "bind", bind)
+    monkeypatch.setattr(_build, "error_string",
+                        lambda lib, code: f"stub error {code} of {lib}")
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: STREAM, raising=False)
+    # a CPU tensor's device has index None: the stub makes it the
+    # current device, so no device guard is entered
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(K, "_forward_plan", lambda *a: (1, 1, 1, 0, 64))
+    monkeypatch.setattr(K, "_tower_plan", lambda *a: (1, 1, 1, 0, 64))
+    monkeypatch.setattr(K2, "max_hidden", lambda: 128)
+    return calls, rc
+
+
+@pytest.mark.parametrize("wrapper", sorted(SEAM))
+def test_seam_counts_one_launch_on_the_current_stream(seam, wrapper):
+    calls, _ = seam
+    run, counted, _, entry = SEAM[wrapper]
+    before = counted.launches
+    run(3)
+    assert counted.launches == before + 1
+    assert len(calls[entry]) == 1 and calls[entry][0][-1] == STREAM
+
+
+@pytest.mark.parametrize("wrapper,code,exc,match", [
+    ("conv_forward", -2, ValueError, "shared memory"),
+    ("conv_forward", -1, ValueError, "kMaxConv"),
+    ("conv_forward", -3, RuntimeError, "workspace smaller than the plan's"),
+    ("conv_tower", -2, ValueError, "shared memory"),
+    ("lstm_scan", -1, ValueError, "kMaxHidden = 128"),
+    ("lstm_scan_ids", -1, ValueError, "kMaxHidden = 128"),
+    ("embed_grad", -1, RuntimeError, "workspace smaller than the plan's"),
+])
+def test_seam_raises_the_wrappers_own_code_from_its_table(seam, wrapper,
+                                                          code, exc, match):
+    _, rc = seam
+    run, counted, _, entry = SEAM[wrapper]
+    rc[entry] = code
+    before = counted.launches
+    with pytest.raises(exc, match=match):
+        run(3)
+    assert counted.launches == before
+
+
+@pytest.mark.parametrize("wrapper", sorted(SEAM))
+def test_seam_raises_a_cuda_error_with_its_message(seam, wrapper):
+    _, rc = seam
+    run, counted, lib, entry = SEAM[wrapper]
+    rc[entry] = 700
+    before = counted.launches
+    with pytest.raises(RuntimeError, match=rf"^{lib} kernel launch failed "
+                       rf"\(700\): stub error 700 of {lib}$"):
+        run(3)
+    assert counted.launches == before
+
+
+@pytest.mark.parametrize("wrapper", sorted(SEAM))
+def test_seam_counts_nothing_without_a_launch(seam, wrapper):
+    """B = 0 (an empty lookup for E1) launches nothing and counts
+    nothing; only K2's entries are called, for their check of H."""
+    calls, _ = seam
+    run, counted, _, entry = SEAM[wrapper]
+    before = counted.launches
+    out = run(0)
+    assert out.shape[0] == (16 if wrapper == "embed_grad" else 0)
+    assert counted.launches == before
+    assert (entry in calls) == wrapper.startswith("lstm_scan")

@@ -4,6 +4,10 @@ plain backward is autograd's table gradient through that expression, PAD's
 row gets none, the wrapper refuses what the kernel does not take, and
 only the conv1d encoder goes through the op. The CUDA kernel is tested on
 the card by tests/test_torch_chip.py."""
+import os
+import subprocess
+import sys
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -143,6 +147,29 @@ def test_plain_path_counts_no_launch():
     before = EG.embed_grad.launches
     EG.embed_grad(grad, ids, V)
     assert EG.embed_grad.launches == before
+
+
+def test_the_op_imports_only_the_build_module():
+    """embed_grad sits below core.models, which imports it: in a fresh
+    interpreter, importing it and running its launch path on an empty
+    lookup imports neither core.models nor conv1d_stack."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.kernels import embed_grad as EG\n"
+        "out = EG._launch(torch.zeros((0, 4)), torch.zeros(0, "
+        "dtype=torch.int32), 8)\n"
+        "assert out.shape == (8, 4)\n"
+        "print(' '.join(m for m in sys.modules "
+        "if m.startswith('repro_torch')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(src)))
+    assert proc.returncode == 0, proc.stderr
+    loaded = set(proc.stdout.split())
+    assert "repro_torch.kernels.embed_grad" in loaded
+    assert not loaded & {"repro_torch.core.models",
+                         "repro_torch.kernels.conv1d_stack"}, loaded
 
 
 @pytest.mark.parametrize("bad", ["half", "float_ids", "shape", "width",

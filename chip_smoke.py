@@ -99,8 +99,15 @@ Phases, each printing JSON lines:
    steps under deterministic algorithms with checkpoints every 50; a
    second run killed at step 120 and resumed from step 100 must land on
    its params (rtol 1e-6, atol 1e-7), E1 launched once a step of the
-   first run (``embed_grad_launches``); the last loss below half the
-   first; ``evaluate`` finite for every head; the first 10 losses within
+   first run (``embed_grad_launches``: a replay of a step's CUDA graph
+   adds the launches its capture counted); the last loss below half the
+   first; ``evaluate`` finite for every head; 10 steps at
+   ``base-train-b512``'s shapes (B=512, the ``batch_max`` loader over
+   the training rows repeated to 2,048 or more), graphed, against an
+   eager loop of ``make_sgd_step`` over the same batches under
+   deterministic algorithms: params, both moments, the count and every
+   loss bit for bit, with at least one step a graph's replay
+   (``graphed_vs_eager``); the first 10 losses within
    TRAIN_LOSS_RTOL of the same engine on the CPU (stopped at step 10 by
    the supervisor's SIGTERM preemption). The trained params are served
    through K1 (conv1d) and, after 20 LSTM steps, K2: rows within 2e-4
@@ -1414,6 +1421,86 @@ def serve_trained(kind: str, result, kernel, plain) -> dict:
             "rows": len(entries), "max_abs_err_vs_plain": err}
 
 
+def eager_sgd_loop(engine, train, steps: int) -> tuple:
+    """``engine``'s step as a plain eager loop of ``make_sgd_step`` on
+    the card over the engine's loader's batches (with compression, the
+    same pieces with the error state threaded). Returns (params, opt
+    state, error state, losses, batch shapes)."""
+    import torch
+    from repro_torch import params as P
+    from repro_torch.core import trainer as TR
+    from repro_torch.ir import dataset as DS
+    from repro_torch.optim import adamw, compress
+    e = engine.ecfg
+    params = P.from_numpy(engine.init_fn(
+        engine.cfg, heads=engine.heads,
+        generator=torch.Generator().manual_seed(e.seed)), "cuda")
+    y, _ = DS.stacked_normalized_targets(train.targets, engine.heads)
+    opt_cfg = adamw.AdamWConfig(lr=e.lr, total_steps=e.steps,
+                                warmup_steps=min(50, e.steps // 10),
+                                weight_decay=e.weight_decay)
+    state = adamw.init_state(params)
+    err = compress.init_error_state(params) if e.compress_grads else None
+    step = TR.make_sgd_step(engine.apply_fn, opt_cfg, heads=engine.heads)
+    loss_fn = TR.make_loss_fn(engine.apply_fn, engine.heads)
+    losses, shapes = [], []
+    for _, b in zip(range(steps), engine.make_loader(train, y)):
+        ids = torch.from_numpy(b["ids"]).cuda()
+        yy = torch.from_numpy(b["y"]).cuda()
+        shapes.append(tuple(ids.shape))
+        if err is None:
+            params, state, loss = step(params, state, ids, yy)
+        else:
+            loss, grads = TR.value_and_grad(loss_fn, params, ids, yy)
+            grads, err = compress.compress_grads(grads, err)
+            with torch.no_grad():
+                params, state, _ = adamw.apply_updates(params, grads,
+                                                       state, opt_cfg)
+        losses.append(float(loss))
+    return params, state, err, losses, shapes
+
+
+def graphed_vs_eager(train, heads, steps: int = 10) -> dict:
+    """``steps`` steps of conv1d at ``base-train-b512``'s shapes (B=512,
+    the ``batch_max`` loader) on the card, graphed, against
+    :func:`eager_sgd_loop` on the same batches, under deterministic
+    algorithms (the caller's): params, both moments, the count and the
+    losses must be the same bits, and at least one step a replay."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import params as P
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.costmodel import COSTMODEL_BASE
+    from repro_torch.core import trainer as TR
+    from repro_torch.obs import trace as OBS
+    rows = train.take(np.resize(np.arange(len(train.ids)),
+                                -(-2048 // len(train.ids)) * len(train.ids)))
+    tracer = OBS.Tracer(sample_every=1, proc="trainer")
+    with tempfile.TemporaryDirectory() as tmp:
+        engine = TR.TrainEngine("conv1d", COSTMODEL_BASE, heads, steps=steps,
+                                batch_size=512, seed=7, log_every=1,
+                                ckpt_dir=tmp, tracer=tracer)
+        got = engine.fit(rows)
+        params, state, err, losses, shapes = eager_sgd_loop(engine, rows,
+                                                            steps)
+        saved, at, _ = ckpt.restore(tmp, (params, state, err))
+    replayed = sum(s["tags"]["graphed"] for s in tracer.recorder.snapshot()
+                   if s["name"] == "trainer.step")
+    check(at == steps, f"the graphed fit saved step {at}, not {steps}")
+    check(replayed >= 1, f"{replayed} of {steps} steps replayed a graph")
+    check([v for _, v in got.history] == losses,
+          "graphed losses are not the eager loop's bits")
+    for name, a, b in (("params", got.params, params),
+                       ("state", saved, (params, state, err))):
+        for x, w in zip(P.tree_flatten(a), P.tree_flatten(b)):
+            check(x.dtype == w.dtype and x.shape == w.shape and
+                  torch.equal(x.cpu(), w.cpu()),
+                  f"graphed {name} are not the eager loop's bits")
+    return {"steps": steps, "replayed": replayed,
+            "shapes": sorted(set(shapes)), "rows": len(rows.ids)}
+
+
 def profile_steps(engine, train, start: int) -> dict:
     """Fit ``engine`` with the profiler on from step ``start`` to the
     end: the wall time a step (host clock, the card synchronized at both
@@ -1587,8 +1674,11 @@ def phase_train(card: str) -> dict:
                 pass
             resumed = TR.TrainEngine("conv1d", COSTMODEL_BASE, heads,
                                      ckpt_dir=d, **kw).fit(tr)
+        replayed_vs_eager = graphed_vs_eager(tr, heads)
     finally:
         torch.use_deterministic_algorithms(False)
+    emit({"phase": "train", "case": "graphed_vs_eager", "bit_equal": True,
+          **replayed_vs_eager})
     check(resumed.stats["steps"] == 100.0,
           f"resumed {resumed.stats['steps']} steps, not 100")
     resume_err = params_equal(full.params, resumed.params, 1e-6, 1e-7)

@@ -21,6 +21,15 @@ models.get_model` (no fused kernel has a backward), then AdamW
 (:mod:`repro_torch.optim.adamw`). The loss stays on the device between
 log points. Training runs on the card unless ``device="cpu"``.
 
+On one card (a CUDA device and no mesh) the step's device work, forward,
+backward, compression and AdamW, is captured as one CUDA graph per
+batch shape and replayed (:class:`_StepGraphs`): the host then makes
+one launch a step where it made some 300. The params, the optimizer
+state and the compression's error state live in tensors the engine
+owns, and each step writes its results into them in place, so a
+replayed step is the eager step's arithmetic. The CPU and the mesh run
+the step eagerly.
+
 On a mesh (``mesh_data * mesh_model > 1``) the engine runs inside a
 default process group of exactly that many ranks (one process a rank;
 ``launch.train`` spawns them). It builds the ``(data, model)`` mesh,
@@ -66,6 +75,7 @@ from repro_torch.core import models as CM
 from repro_torch.core.service import pad_slack
 from repro_torch.data import pipeline as PIPE
 from repro_torch.ir import dataset as DS
+from repro_torch.kernels import _build as KB
 from repro_torch.obs import trace as OBS
 from repro_torch.optim import adamw, compress
 from repro_torch.runtime import fault
@@ -114,6 +124,20 @@ def _grads(params, loss, flat):
     """The backward half of :func:`value_and_grad`."""
     grads = torch.autograd.grad(loss, flat)
     return loss.detach(), P.tree_unflatten(params, grads)
+
+
+def _copy_into(dst, src) -> None:
+    """``d.copy_(s)`` for each pair, as one ``_foreach_copy_`` a dtype:
+    a list of one dtype takes the fused multi-tensor route, where a
+    mixed one (the float32 leaves with AdamW's int32 count) copies each
+    pair on its own."""
+    groups: Dict[torch.dtype, Tuple[list, list]] = {}
+    for d, s in zip(dst, src):
+        group = groups.setdefault(d.dtype, ([], []))
+        group[0].append(d)
+        group[1].append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
 
 
 def make_sgd_step(apply_fn, opt_cfg, grad_transform=None,
@@ -172,6 +196,109 @@ class EngineConfig:
     device: Optional[str] = None
 
 
+@dataclass
+class _Shape:
+    """One batch shape's device buffers, its eager steps so far and,
+    once captured, its graph with the kernel launches it counts."""
+    ids: torch.Tensor
+    y: torch.Tensor
+    eager: int = 0
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    launches: Dict[object, int] = field(default_factory=dict)
+
+
+class _StepGraphs:
+    """A training step on one card, captured as one CUDA graph per batch
+    shape and replayed.
+
+    ``run_step(ids, y, ctx)`` runs one step from device buffers, writes
+    its results into tensors made before any capture (the engine's state
+    and a loss) and returns that loss tensor; ``ctx`` is the step's trace
+    context for its phase spans, None inside a capture. :meth:`inputs`
+    copies a batch into its shape's own ``ids`` and ``y`` buffers (a
+    blocking copy from the loader's pageable arrays: where the host
+    waits for the card). The first ``WARMUP`` steps of a shape run
+    ``run_step`` eagerly, as real steps, on the side stream a capture
+    then uses, so cuDNN's, cuBLAS's and the allocator's lazy start-up
+    happen outside the graph; the next step of that shape captures it
+    (span ``trainer.capture``, the price of a new shape) and replays
+    it, as does every later one. The graphs share one memory pool: they
+    never run at once. A capture runs nothing on the card, so the kernel
+    launches it counts (``kernels._build.launch_counts``) are taken back
+    and added again at each replay: a kernel's ``launches`` stays the
+    number of times it ran.
+
+    ``WARMUP`` is at least the number of steps the benchmark's training
+    check records (``bench/drivers/train.py``'s ``_Recorder(3)``, which
+    wraps ``adamw.apply_updates`` and the loss function and clones what
+    they return): a clone made inside a capture would be a buffer of
+    the graph's pool, empty until a replay writes it and overwritten by
+    every later one, so the check would read no step it could trust."""
+
+    WARMUP = 3      # torch.cuda.make_graphed_callables' default
+
+    def __init__(self, run_step: Callable, device: torch.device, tracer):
+        self.run_step = run_step
+        self.device = device
+        self.tracer = tracer
+        self.side = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.shapes: Dict[Tuple[int, ...], _Shape] = {}
+        self.loss: Optional[torch.Tensor] = None
+
+    def inputs(self, ids: torch.Tensor, y: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device buffers of ``ids``' batch shape, holding the host
+        tensors ``ids`` and ``y``."""
+        shape = self.shapes.get(tuple(ids.shape))
+        if shape is None:
+            shape = self.shapes[tuple(ids.shape)] = _Shape(*(
+                torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                for t in (ids, y)))
+        shape.ids.copy_(ids)
+        shape.y.copy_(y)
+        return shape.ids, shape.y
+
+    def step(self, ids: torch.Tensor, y: torch.Tensor, ctx
+             ) -> Tuple[torch.Tensor, bool]:
+        """One training step on the buffers :meth:`inputs` gave: (the
+        loss tensor, whether a graph ran it)."""
+        shape = self.shapes[tuple(ids.shape)]
+        if shape.graph is None and shape.eager < self.WARMUP:
+            shape.eager += 1
+            main = torch.cuda.current_stream(self.device)
+            self.side.wait_stream(main)
+            with torch.cuda.stream(self.side):
+                loss = self.run_step(ids, y, ctx)
+            main.wait_stream(self.side)
+            return loss, False
+        tr = self.tracer
+        if shape.graph is None:
+            with tr.span("trainer.capture", ctx):
+                before = KB.launch_counts()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=self.side):
+                    self.loss = self.run_step(ids, y, None)
+                shape.launches = KB.moved_since(before)
+                for counted, n in shape.launches.items():
+                    KB.count(counted, -n)
+                shape.graph = graph
+        with tr.span("trainer.replay", ctx):
+            shape.graph.replay()
+        for counted, n in shape.launches.items():
+            KB.count(counted, n)
+        return self.loss, True
+
+    def drop(self) -> None:
+        """Release every graph and the pool's hold on their memory."""
+        for shape in self.shapes.values():
+            if shape.graph is not None:
+                shape.graph.reset()
+        self.shapes.clear()
+        self.pool = None
+
+
 class TrainEngine:
     """The one way to train a cost model (see module docstring).
 
@@ -187,13 +314,16 @@ class TrainEngine:
     whose children are ``trainer.prepare`` (from the call to the first
     step) and a ``trainer.step`` (tags ``step``, counted from 1 as
     ``on_step`` counts, and ``profiled``, whether a torch profiler
-    recorded it) for each sampled step, with five children:
-    ``trainer.batch`` (the wait on the loader), ``trainer.copy_in`` (the
-    batch's copies to the device, which wait for the card from pageable
-    memory), ``trainer.forward``, ``trainer.backward`` and
-    ``trainer.optimizer``. The run's first step is always sampled, a
-    later one when ``tracer.sample()`` hits or while a torch profiler
-    records (:func:`repro_torch.obs.trace.profiling`)."""
+    recorded it; and ``graphed``, whether a CUDA graph ran it) for each
+    sampled step. An eager step has five children: ``trainer.batch``
+    (the wait on the loader), ``trainer.copy_in`` (the batch's copies to
+    the device, which wait for the card from pageable memory),
+    ``trainer.forward``, ``trainer.backward`` and ``trainer.optimizer``.
+    A graphed step has ``trainer.batch``, ``trainer.copy_in``, then
+    ``trainer.capture`` if it captures its shape's graph, and
+    ``trainer.replay`` (the graph's launch). The run's first step is
+    always sampled, a later one when ``tracer.sample()`` hits or while a
+    torch profiler records (:func:`repro_torch.obs.trace.profiling`)."""
 
     def __init__(self, kind: str, cfg, target: TargetSpec,
                  engine: Optional[EngineConfig] = None, *,
@@ -284,6 +414,11 @@ class TrainEngine:
         params = P.from_numpy(params, dev)
         loader = self.make_loader(train, y)
         rules = self.mesh_rules()
+        graphed = dev.type == "cuda" and rules is None
+        if graphed:
+            # the graphed step updates its state in place: the params
+            # must be the engine's own, not the caller's tensors
+            params = P.tree_map(torch.clone, params)
 
         opt_cfg = adamw.AdamWConfig(lr=e.lr, total_steps=e.steps,
                                     warmup_steps=min(50, e.steps // 10),
@@ -331,6 +466,20 @@ class TrainEngine:
         it = iter(loader)
         history = []
         last = [torch.tensor(float("nan"))]
+        graphs = None
+        if graphed:
+            # the state the supervisor restored (or made) is the one the
+            # graphs read and write, for the whole fit
+            fixed_state = state
+            fixed = P.tree_flatten(state) + [
+                torch.zeros((), dtype=torch.float32, device=dev)]
+
+            def step_in_place(ids, yy, ctx):
+                new, loss = train_step(fixed_state, ids, yy, ctx)
+                with torch.no_grad():
+                    _copy_into(fixed, P.tree_flatten(new) + [loss])
+                return fixed[-1]
+            graphs = _StepGraphs(step_in_place, dev, tr)
 
         def step_fn(state, step):
             profiled = OBS.profiling()
@@ -342,9 +491,17 @@ class TrainEngine:
                 with tr.span("trainer.batch", ctx):
                     batch = next(it)
                 with tr.span("trainer.copy_in", ctx):
-                    ids = torch.from_numpy(batch["ids"]).to(dev)
-                    yy = torch.from_numpy(batch["y"]).to(dev)
-                state, loss = train_step(state, ids, yy, ctx)
+                    ids = torch.from_numpy(batch["ids"])
+                    yy = torch.from_numpy(batch["y"])
+                    ids, yy = (ids.to(dev), yy.to(dev)) if graphs is None \
+                        else graphs.inputs(ids, yy)
+                if graphs is None:
+                    state, loss = train_step(state, ids, yy, ctx)
+                    replayed = False
+                else:
+                    loss, replayed = graphs.step(ids, yy, ctx)
+                if sp is not None:
+                    sp.tags["graphed"] = replayed
             last[0] = loss     # device value; sync only at log points
             return state
 
@@ -360,14 +517,18 @@ class TrainEngine:
         heads_extra = list(self.heads) if self.heads else [self.target]
         tr.end(prepare)
         t0 = time.perf_counter()
-        state = sup.run(
-            state, step_fn, e.steps, start_step=start,
-            extra_fn=lambda: {"loader": loader.state.as_dict(),
-                              "norm_stats": norm_stats,
-                              "heads": heads_extra},
-            on_step=_on_step)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        try:
+            state = sup.run(
+                state, step_fn, e.steps, start_step=start,
+                extra_fn=lambda: {"loader": loader.state.as_dict(),
+                                  "norm_stats": norm_stats,
+                                  "heads": heads_extra},
+                on_step=_on_step)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        finally:
+            if graphs is not None:
+                graphs.drop()
         wall = time.perf_counter() - t0
         steps_run = max(e.steps - start, 0)
         # a resume that finds the run already complete executes 0 steps:

@@ -55,6 +55,7 @@ _lock = threading.Lock()                       # guards _name_locks
 _name_locks: Dict[str, threading.Lock] = {}     # one per source
 _libs: Dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()                  # guards every .launches
+_counted: set = set()          # every wrapper whose count has moved
 # names this process ran nvcc for, in order: a replica tier's children
 # report it, so a child that built instead of loading shows
 compiled: List[str] = []
@@ -181,8 +182,31 @@ def launch(counted, lib: str, entry, device: torch.device, args: tuple,
             rc = entry(*args, stream)
     check(lib, rc, errors, detail)
     if counted is not None:
-        with _count_lock:
-            counted.launches += 1
+        count(counted)
+
+
+def count(counted, n: int = 1) -> None:
+    """Add ``n`` to ``counted.launches``."""
+    with _count_lock:
+        counted.launches += n
+        _counted.add(counted)
+
+
+def launch_counts() -> Dict[object, int]:
+    """Each wrapper counted so far, with its ``launches``: a CUDA graph's
+    capture reads what it counted from two of these
+    (:func:`moved_since`), takes that back, since a capture runs nothing
+    on the card, and adds it again at every replay, so that a count
+    stays the number of times the kernel ran
+    (``core.trainer._StepGraphs``)."""
+    with _count_lock:
+        return {c: c.launches for c in _counted}
+
+
+def moved_since(before: Mapping[object, int]) -> Dict[object, int]:
+    """How far each count moved since ``before`` (a :func:`launch_counts`)."""
+    moved = {c: n - before.get(c, 0) for c, n in launch_counts().items()}
+    return {c: n for c, n in moved.items() if n}
 
 
 def build_log(name: str) -> str:

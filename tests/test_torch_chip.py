@@ -13,6 +13,8 @@ The training checks need deterministic algorithms, and with them cuBLAS
 needs ``CUBLAS_WORKSPACE_CONFIG`` before its first call; this module
 sets it when it is imported.
 """
+import dataclasses
+import functools
 import importlib.util
 import os
 import threading
@@ -27,6 +29,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import params as P
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs import costmodel as CFGS
 from repro_torch.core import models as CM
 from repro_torch.core import tokenizer as TOK
@@ -37,6 +40,7 @@ from repro_torch.core.service import CostModelService
 from repro_torch.ir import dataset as DS
 from repro_torch.ir import frontdoor as FD
 from repro_torch.ir import printer, samplers
+from repro_torch.obs import trace as OBS
 from repro_torch.kernels import conv1d_stack as K
 from repro_torch.kernels import embed_grad as EG
 from repro_torch.kernels import lstm_scan as K2
@@ -710,6 +714,199 @@ def test_engine_resume_on_card_is_exact(cuda, tmp_path):
                                    rtol=1e-6, atol=1e-7)
 
 
+# ------------------------------------------------ the graphed training step
+@functools.lru_cache(maxsize=None)
+def smoke():
+    """``chip_smoke.py`` as a module."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def two_width_corpus(n_each=1024, vocab=8192, seed=0):
+    """``n_each`` rows of 4-20 tokens and ``n_each`` of 24-50 (buckets
+    32 and 64 at COSTMODEL_BASE's pad slack of 12), ids drawn from the
+    vocabulary, three positive targets: at B=512 the homogeneous loader
+    gives two batches of each width an epoch."""
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([rng.integers(4, 21, n_each),
+                           rng.integers(24, 51, n_each)]).astype(np.int32)
+    ids = rng.integers(1, vocab, (2 * n_each, 64)).astype(np.int32)
+    ids[np.arange(64)[None, :] >= lens[:, None]] = 0
+    targets = {t: np.exp(rng.normal(2.0, 0.5, 2 * n_each)).astype(
+        np.float32) for t in DEFAULT_HEADS}
+    return DS.CostDataset(ids=ids, targets=targets,
+                          vocab=TOK.Vocab({"<pad>": 0}), mode="ops",
+                          max_seq=64, seq_lens=lens)
+
+
+def small_corpus():
+    tr, _ = DS.build_dataset(300, mode="ops", max_seq=96, vocab_size=512,
+                             augment_factor=2, seed=1).split(0.1)
+    return tr
+
+
+# (kind, config, batch, engine options, corpus): conv1d at the cell's
+# B=512 over two widths, the other families and compression small
+GRAPH_CASES = {
+    "conv1d-b512": ("conv1d", CFGS.COSTMODEL_BASE, 512,
+                    {"bucket_mode": "homogeneous"}, two_width_corpus),
+    "conv1d-compress": ("conv1d", CFGS.COSTMODEL_SMALL, 32,
+                        {"compress_grads": True}, small_corpus),
+    "fc": ("fc", CFGS.COSTMODEL_SMALL, 32, {}, small_corpus),
+    "lstm": ("lstm", CFGS.COSTMODEL_SMALL, 32, {}, small_corpus),
+    "xformer": ("xformer", dataclasses.replace(CFGS.COSTMODEL_SMALL,
+                                               max_seq=96), 32, {},
+                small_corpus),
+}
+
+
+@pytest.fixture
+def deterministic(cuda):
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield cuda
+    torch.use_deterministic_algorithms(prev)
+
+
+def eager_sgd_loop(engine, train, steps):
+    """``chip_smoke.py``'s eager loop of ``make_sgd_step`` over the
+    engine's batches: (params, opt state, error state, losses, shapes)."""
+    return smoke().eager_sgd_loop(engine, train, steps)
+
+
+def graphed_flags(shapes):
+    """Which steps a graph runs: each shape's steps after its first
+    ``WARMUP``."""
+    seen = {}
+    out = []
+    for s in shapes:
+        seen[s] = seen.get(s, 0) + 1
+        out.append(seen[s] > TR._StepGraphs.WARMUP)
+    return out
+
+
+def assert_same_bits(got, want):
+    got, want = P.tree_flatten(got), P.tree_flatten(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graphed_fit_is_the_eager_loop_bit_for_bit(deterministic, case,
+                                                   tmp_path):
+    """Under deterministic algorithms, 20 steps of a fit on the card
+    (eager warm-ups, then a CUDA graph a batch shape) and 20 eager
+    ``make_sgd_step`` steps over the same batches give the same bits:
+    params, both moments, the count, the error state and every loss;
+    every step after a shape's third is tagged ``graphed``."""
+    kind, cfg, batch, opts, corpus = GRAPH_CASES[case]
+    train = corpus()
+    tracer = OBS.Tracer(sample_every=1, proc="trainer")
+    engine = TR.TrainEngine(kind, cfg, DEFAULT_HEADS, steps=20,
+                            batch_size=batch, seed=4, log_every=1,
+                            device="cuda", ckpt_dir=str(tmp_path),
+                            tracer=tracer, **opts)
+    got = engine.fit(train)
+    params, state, err, losses, shapes = eager_sgd_loop(engine, train, 20)
+    if case == "conv1d-b512":
+        assert sorted(set(shapes)) == [(512, 32), (512, 64)]
+    flags = graphed_flags(shapes)
+    assert sum(flags) >= 10
+    saved, step, _ = ckpt.restore(str(tmp_path), (params, state, err))
+    assert step == 20
+    assert [v for _, v in got.history] == losses
+    assert_same_bits(got.params, params)
+    assert_same_bits(saved, (params, state, err))
+    tags = [s["tags"] for s in tracer.recorder.snapshot()
+            if s["name"] == "trainer.step"]
+    assert [t["graphed"] for t in tags] == flags
+
+
+def test_a_replayed_step_makes_the_host_wait_for_nothing(deterministic):
+    """Every graph replay of a conv1d fit at B=512 over two widths runs
+    under ``set_sync_debug_mode("error")``: 14 of its 20 steps."""
+    real = torch.cuda.CUDAGraph.replay
+    calls = []
+
+    def replay(graph):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(graph)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        calls.append(1)
+    with mock.patch.object(torch.cuda.CUDAGraph, "replay", replay):
+        result = TR.TrainEngine("conv1d", CFGS.COSTMODEL_BASE,
+                                DEFAULT_HEADS, steps=20, batch_size=512,
+                                device="cuda", bucket_mode="homogeneous"
+                                ).fit(two_width_corpus())
+    assert len(calls) == 14 and np.isfinite(result.stats["final_loss"])
+
+
+def test_graphed_resume_from_a_checkpoint_is_bit_exact(deterministic,
+                                                       tmp_path):
+    """A graphed run killed at step 17 and resumed from its step-10
+    checkpoint (new graphs, captured after the restore) lands on the
+    uninterrupted run's params bit for bit."""
+    train = small_corpus()
+    kw = dict(steps=40, batch_size=32, seed=3, device="cuda")
+    full = TR.TrainEngine("conv1d", CFGS.COSTMODEL_SMALL, DEFAULT_HEADS,
+                          **kw).fit(train)
+
+    class Kill(Exception):
+        pass
+
+    def killer(step, dt):
+        if step == 17:
+            raise Kill()
+    d = str(tmp_path / "ck")
+    with pytest.raises(Kill):
+        TR.TrainEngine("conv1d", CFGS.COSTMODEL_SMALL, DEFAULT_HEADS,
+                       ckpt_dir=d, save_every=10, **kw).fit(
+                           train, on_step=killer)
+    resumed = TR.TrainEngine("conv1d", CFGS.COSTMODEL_SMALL, DEFAULT_HEADS,
+                             ckpt_dir=d, save_every=10, **kw).fit(train)
+    assert resumed.stats["steps"] == 30.0
+    assert_same_bits(resumed.params, full.params)
+
+
+def test_graphs_captured_under_a_cuda_profiler_give_the_same_bits(
+        deterministic):
+    """A fit whose captures happen while a CUDA profiler records (as in
+    a traced benchmark window or ``chip_smoke.py``'s profiled steps)
+    lands on the unprofiled fit's params, and the profiler sees the
+    replayed graphs' kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    train = small_corpus()
+    kw = dict(steps=12, batch_size=32, seed=5, device="cuda")
+    plain = TR.TrainEngine("conv1d", CFGS.COSTMODEL_SMALL, DEFAULT_HEADS,
+                           **kw).fit(train)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = TR.TrainEngine("conv1d", CFGS.COSTMODEL_SMALL,
+                                DEFAULT_HEADS, **kw).fit(train)
+    assert_same_bits(traced.params, plain.params)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in kernels) > 0
+
+
+def test_graphed_fit_counts_e1_once_a_step(deterministic):
+    """E1's host counter over a graphed conv1d fit over two widths: one
+    a step, eager or replayed (a replay adds what its capture counted,
+    and the capture's own count is taken back)."""
+    before = EG.embed_grad.launches
+    TR.TrainEngine("conv1d", CFGS.COSTMODEL_BASE, DEFAULT_HEADS, steps=20,
+                   batch_size=512, device="cuda", bucket_mode="homogeneous"
+                   ).fit(two_width_corpus())
+    assert EG.embed_grad.launches - before == 20
+
+
 # ------------------------------------------- the conv1d lookup's backward
 # base-train-b512's shapes: B=512 rows padded to a bucket of the ladder
 # (32, 64, 128, 256), the 8,192-id vocabulary, E=64
@@ -941,11 +1138,7 @@ def test_start_replicas_builds_kernels_before_spawning(cuda, tmp_path,
 def seeded_family_params(kind, cfg, heads, seed):
     """``chip_smoke.py``'s seeded FC or transformer params: the embedding
     x20, every bias, the position table and the LayerNorm gains drawn."""
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke.seeded_family_params(kind, cfg, heads, seed)
+    return smoke().seeded_family_params(kind, cfg, heads, seed)
 
 
 @pytest.mark.parametrize("kind", ["fc", "xformer"])

@@ -1,8 +1,9 @@
 """The trainer's spans: ``TrainEngine.fit`` records one trace on the
 process's tracer (``obs.trace.default_tracer``) with ``trainer.prepare``
 and one ``trainer.step`` a sampled step, each step split into five
-phases. Tracing changes no bit of the trained params; the spans never
-enter a torch profiler, and their wall stamps lie on its clock."""
+phases (on the CPU every step is eager: tagged ``graphed`` False).
+Tracing changes no bit of the trained params; the spans never enter a
+torch profiler, and their wall stamps lie on its clock."""
 import os
 import statistics
 import subprocess
@@ -94,7 +95,7 @@ def test_a_fit_records_its_steps_phases(sample_every, sampled, data,
         ["trainer.prepare"] + ["trainer.step"] * len(sampled)
     steps = [s for s in recs if s["name"] == "trainer.step"]
     assert [s["tags"] for s in steps] == \
-        [{"step": n, "profiled": False} for n in sampled]
+        [{"step": n, "profiled": False, "graphed": False} for n in sampled]
     covered = []
     for s in steps:
         kids = tree.children[s["span"]]
@@ -130,7 +131,7 @@ def test_a_profiled_fit_samples_every_step_and_adds_no_event(data):
     assert not OBS.profiling()
     steps = [s["tags"] for s in tracer.recorder.snapshot()
              if s["name"] == "trainer.step"]
-    assert steps == [{"step": n, "profiled": True}
+    assert steps == [{"step": n, "profiled": True, "graphed": False}
                      for n in range(1, STEPS + 1)]
     names = {e.name for e in prof.events()}
     assert any(n.startswith("aten::") for n in names)

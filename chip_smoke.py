@@ -8,7 +8,7 @@ Phases, each printing JSON lines:
 1. ``device``  — the card's name, and its name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    prints them (that raw line is printed too).
-2. ``build``   — builds the four CUDA kernel libraries from
+2. ``build``   — builds the five CUDA kernel libraries from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` each, all started
    together; K1 and K3 share ``conv_tile.cuh``) and reports each one's
    seconds and ptxas register and spill lines.
@@ -210,7 +210,25 @@ Phases, each printing JSON lines:
    are two models: AdamW amplifies the devices' rounding). Reports the lowering's seconds, texts a
    second through ``predict_text`` (a fresh K1 service, cold LRU), K1's
    launches and the phase's seconds.
-15. ``lm`` — the LLM substrate (``repro_torch.models``) on the card,
+15. ``kernels_scan`` — the selective-scan kernel (S1,
+   ``kernels/selective_scan.py``) against the plain scan
+   (``models.mamba.chunked_scan`` plus ``D x``, autograd) on the card:
+   y and the six gradients within SCAN_TOL of the largest entry, at L
+   not a multiple of the 16-step chunk, 8 states, a part-filled channel
+   block, and jamba2-3b-train-s4096's shape (8 rows of 4,096 steps,
+   5,120 channels, 16 states; and one row), where the plain scan runs a
+   block of SCAN_BLOCK channels at a time; two launches of a call each;
+   two calls at the cell's shape bit-equal; the plain scan with x
+   rounded to bfloat16 misses the limit (the limit can fail). Times:
+   forward and forward+backward at the cell's shape (CUDA events,
+   median of 5), their bound by bytes (the function's own inputs read
+   once and outputs written once at 3.35 TB/s), and kernel against the
+   plain scan at (2, 1,024, 5,120, 16), where the plain scan fits whole.
+   ``selective_scan.launches`` is set to 0 after this phase, so the
+   kernels line counts the lm phase's launches (jamba-v0.1-52b's reduced
+   forward passes and train step run the scan through S1).
+
+16. ``lm`` — the LLM substrate (``repro_torch.models``) on the card,
    plain PyTorch: no kernel lies on this path, and the phase line says
    so. qwen3-0.6b at its published widths (28 layers, d_model 1024, 16
    query and 8 KV heads of 128, vocab 151,936), params from the port's
@@ -239,7 +257,7 @@ Phases, each printing JSON lines:
    host at the phase's start (threads, child processes, a fixed Python
    loop's seconds): the step and decode are host-bound.
 
-16. ``mesh`` — the mesh tooling. (a) qwen3-0.6b at its published widths
+17. ``mesh`` — the mesh tooling. (a) qwen3-0.6b at its published widths
    on a one-rank NCCL mesh (``launch.mesh.make_single_device_mesh``):
    params and optimizer state placed as DTensors by the reference's
    rules, one train step at B=8, S=512 through ``make_train_step(rules=
@@ -266,10 +284,13 @@ Phases, each printing JSON lines:
 Then one ``{"kernels": [...]}`` line (K1's and K2's ``launches`` add
 the replicated phase's, counted in the replicas, and K1's the cli,
 ingest and mesh phases', under ``launches_by_path``; E1's are the train
-phase's first 200-step run's), and the last line
+phase's first 200-step run's; S1's the lm phase's), and the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is not 0 and no result line is printed; so does a machine without
 a CUDA card, or a directory without the repository's ``src/``.
+
+``--scan-only`` runs the device, build, kernels_scan and lm phases alone
+and prints a kernels line of S1 alone.
 """
 from __future__ import annotations
 
@@ -514,9 +535,9 @@ def ptxas_usage(lib: str) -> dict:
 
 def phase_build() -> None:
     from repro_torch.kernels import _build, conv1d_stack, embed_grad, \
-        lstm_scan
+        lstm_scan, selective_scan
     libs = [conv1d_stack.LIB, lstm_scan.LIB, conv1d_stack.TOWER_LIB,
-            embed_grad.LIB]
+            embed_grad.LIB, selective_scan.LIB]
     secs = _build.build_all(libs)
     ptxas = {lib: [ln.strip() for ln in _build.build_log(lib).splitlines()
                    if "registers" in ln or "spill" in ln] for lib in libs}
@@ -3265,6 +3286,164 @@ LM_DECODE_STEPS = 8              # each reduced arch
 LM_REL = 1e-5
 
 
+# the selective-scan phase (S1)
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
+SCAN_CELL = (8, 4096, 5120, 16)     # jamba2-3b-train-s4096's scan
+# float32 both ways; the kernel sums in other orders (a sequential state
+# against the chunked log-depth scan; dA and dD over rows and steps, dB
+# and dC over channels) and takes expf: each output within 1e-4 of its
+# largest entry, as tests/test_torch_chip.py holds it
+SCAN_TOL = 1e-4
+SCAN_BLOCK = 256    # the plain scan's channels at a time at the cell's
+SCAN_NAMES = ("y", "dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+def scan_case(B: int, L: int, D: int, N: int, seed: int):
+    """x, dt (softplus of N(-3, 1)), A (-exp(log(1..N) + noise)), B, C,
+    D (1 + noise) and an output gradient, float32 on the card."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+    A = -torch.exp(torch.log(torch.arange(1, N + 1.0)).repeat(D, 1)
+                   + 0.1 * r(D, N))
+    ts = (r(B, L, D), torch.nn.functional.softplus(r(B, L, D) - 3), A,
+          r(B, L, N), r(B, L, N), 1 + 0.1 * r(D), r(B, L, D))
+    return [t.cuda() for t in ts]
+
+
+def scan_and_grads(scan, x, dt, A, Bm, Cm, D, dy):
+    """(y, dx, ddt, dA, dB, dC, dD) of ``scan(x, dt, A, B, C, D)``."""
+    import torch
+    ts = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    y = scan(*ts)
+    return (y.detach(),) + torch.autograd.grad(y, ts, dy)
+
+
+def plain_scan(x, dt, A, Bm, Cm, D):
+    from repro_torch.models import mamba as MB
+    return MB.chunked_scan(x, dt, A, Bm, Cm) + D * x
+
+
+def plain_scan_by_channels(case, width: int = SCAN_BLOCK):
+    """The plain scan's outputs and gradients a block of channels at a
+    time (channels are independent but for dB and dC, which sum over
+    them)."""
+    import torch
+    x, dt, A, Bm, Cm, D, dy = case
+    outs = [torch.empty_like(x), torch.empty_like(x), torch.empty_like(x),
+            torch.empty_like(A), torch.zeros_like(Bm), torch.zeros_like(Cm),
+            torch.empty_like(D)]
+    for c0 in range(0, x.shape[2], width):
+        sl = slice(c0, c0 + width)
+        got = scan_and_grads(plain_scan, x[..., sl], dt[..., sl], A[sl], Bm,
+                             Cm, D[sl], dy[..., sl])
+        for i in (0, 1, 2):
+            outs[i][..., sl] = got[i]
+        outs[3][sl], outs[6][sl] = got[3], got[6]
+        outs[4] += got[4]
+        outs[5] += got[5]
+    return outs
+
+
+def scan_gaps(got, want) -> dict:
+    return {n: float((a - b).abs().max() / b.abs().max())
+            for n, a, b in zip(SCAN_NAMES, got, want)}
+
+
+def scan_bound_ms(B: int, L: int, D: int, N: int) -> tuple:
+    """(forward, backward) least ms by bytes: x, dt, B, C, A, D in and y
+    out; then those and dy in and the six gradients out, float32."""
+    seq_d, seq_n, small = B * L * D, B * L * N, D * N + D
+    fwd = (3 * seq_d + 2 * seq_n + small) * 4
+    bwd = (5 * seq_d + 4 * seq_n + 2 * small) * 4
+    return fwd / PEAK_BYTES * 1e3, bwd / PEAK_BYTES * 1e3
+
+
+def cuda_ms(fn, n: int = 5) -> float:
+    """Median card ms of ``fn()`` over ``n`` runs after one warm-up, CUDA
+    events around each."""
+    import numpy as np
+    import torch
+    fn()
+    times = []
+    for _ in range(n):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def phase_kernels_scan() -> dict:
+    """S1 against the plain scan on the card, and its times (see the
+    module docstring)."""
+    import torch
+    from repro_torch.kernels import selective_scan as SS
+    worst = 0.0
+    cases = [(2, 100, 96, 16), (1, 1000, 200, 16), (3, 257, 70, 8),
+             (2, 33, 130, 8), (1,) + SCAN_CELL[1:], SCAN_CELL]
+    for k, shape in enumerate(cases):
+        case = scan_case(*shape, seed=k)
+        before = SS.selective_scan.launches
+        got = scan_and_grads(SS.selective_scan, *case)
+        check(SS.selective_scan.launches - before == 2,
+              f"selective_scan {shape}: "
+              f"{SS.selective_scan.launches - before} launches, not 2")
+        cell = shape[2] > SCAN_BLOCK
+        want = plain_scan_by_channels(case) if cell else \
+            scan_and_grads(plain_scan, *case)
+        gaps = scan_gaps(got, want)
+        check(max(gaps.values()) <= SCAN_TOL,
+              f"selective_scan {shape}: gaps {gaps} (limit {SCAN_TOL})")
+        worst = max(worst, max(gaps.values()))
+        c = {"case": "parity", "shape": list(shape), "gaps": gaps}
+        if shape == SCAN_CELL:
+            again = scan_and_grads(SS.selective_scan, *case)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  "selective_scan: two calls at the cell's shape differ")
+            c["bit_equal"] = True
+        emit({"phase": "kernels_scan", **c})
+        del got, want, case
+
+    # the limit can fail: the plain scan of x rounded to bfloat16
+    case = scan_case(2, 1000, 200, 16, seed=99)
+    x16 = case[0].to(torch.bfloat16).float()
+    miss = scan_gaps(scan_and_grads(plain_scan, x16, *case[1:]),
+                     scan_and_grads(plain_scan, *case))["y"]
+    check(miss > SCAN_TOL, f"selective_scan: x in bfloat16 only {miss}")
+    emit({"phase": "kernels_scan", "case": "sensitivity",
+          "bf16_x_y_gap": miss, "limit": SCAN_TOL})
+
+    # times at the cell's shape, and beside the plain scan where it fits
+    case = scan_case(*SCAN_CELL, seed=7)
+    args = case[:6]
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: SS.selective_scan(*args))
+    both_ms = cuda_ms(lambda: scan_and_grads(SS.selective_scan, *case))
+    bf, bb = scan_bound_ms(*SCAN_CELL)
+    del case, args
+    small = scan_case(2, 1024, 5120, 16, seed=8)
+    k_ms, p_ms = time_pair(
+        lambda: scan_and_grads(SS.selective_scan, *small),
+        lambda: scan_and_grads(plain_scan, *small), n_samples=5, reps=1)
+    check(p_ms >= 10 * k_ms, f"selective_scan: {k_ms} ms against the "
+          f"plain scan's {p_ms} at (2, 1024, 5120, 16), under 10x")
+    t = {"shape": list(SCAN_CELL), "forward_ms": fwd_ms,
+         "backward_ms": both_ms - fwd_ms, "ms": both_ms,
+         "bound_ms": bf + bb, "forward_bound_ms": bf,
+         "backward_bound_ms": bb, "bound_by": "bytes",
+         "roofline_pct": 100.0 * (bf + bb) / both_ms,
+         "small_shape": [2, 1024, 5120, 16], "small_ms": k_ms,
+         "plain_ms": p_ms, "ptxas": ptxas_usage(SS.LIB)}
+    emit({"phase": "kernels_scan", "case": "timing", **t})
+    SS.selective_scan.launches = 0
+    return {"max_gap": worst, "timing": t}
+
+
 def lm_batch(cfg, seed: int, B: int, S: int) -> dict:
     """A reduced arch's numpy batch: tokens, labels and the frontend's
     stub embeddings, as the reference's arch tests make them."""
@@ -3874,8 +4053,42 @@ def phase_mesh(card: str) -> dict:
     return out
 
 
-def main() -> int:
+def scan_entry(scan: dict, lm_launches: int, card: str) -> dict:
+    """S1's entry of the kernels line."""
+    t = scan["timing"]
+    return {"name": "selective_scan", "route": "cuda",
+            "source": SCAN_SOURCE, "replaces": None,
+            "launches": lm_launches, "launches_by_path": {"lm": lm_launches},
+            "max_gap": scan["max_gap"], "limit": SCAN_TOL,
+            **{k: t[k] for k in ("ms", "forward_ms", "backward_ms",
+                                 "bound_ms", "forward_bound_ms",
+                                 "backward_bound_ms", "bound_by",
+                                 "roofline_pct", "small_shape", "small_ms",
+                                 "plain_ms", "ptxas")},
+            "library_ms": None, "shape": dict(zip("BLDN", t["shape"])),
+            "card": card}
+
+
+def scan_and_lm(card: str) -> dict:
+    """The kernels_scan phase, then the lm phase with S1's counter from
+    0: S1's entry of the kernels line."""
+    from repro_torch.kernels import selective_scan as SS
+    scan = phase_kernels_scan()
+    phase_lm(card)
+    check(SS.selective_scan.launches > 0, "lm: no selective_scan launch "
+          "(jamba-v0.1-52b's reduced Mamba layers run it)")
+    return scan_entry(scan, SS.selective_scan.launches, card)
+
+
+def main(argv=None) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description="Smoke test of the port on "
+                                 "one NVIDIA card.")
+    ap.add_argument("--scan-only", action="store_true",
+                    help="the device, build, kernels_scan and lm phases "
+                    "alone, and a kernels line of S1 alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA card", file=sys.stderr)
@@ -3888,6 +4101,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = phase_device()
     phase_build()
+    if args.scan_only:
+        emit({"kernels": [scan_and_lm(dev["nvidia_smi"])]})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
+                                     "count": torch.cuda.device_count()}})
+        return 0
     kern = phase_kernels()
     serve = phase_serve(dev["nvidia_smi"])
     lstm = phase_kernels_lstm()
@@ -3900,7 +4118,7 @@ def main() -> int:
     phase_families(dev["nvidia_smi"])
     cli = phase_cli(dev["nvidia_smi"])
     ingest = phase_ingest(dev["nvidia_smi"])
-    phase_lm(dev["nvidia_smi"])
+    s1 = scan_and_lm(dev["nvidia_smi"])
     mesh = phase_mesh(dev["nvidia_smi"])
     t64, t4, t1 = (kern["timings"][b] for b in (64, 4, 1))
     l64, l1 = lstm["timings"][64], lstm["timings"][1]
@@ -3984,7 +4202,7 @@ def main() -> int:
             "ms", "kernel_ms", "plain_ms", "library_ms", "index_put_ms",
             "device_ms", "host_ms", "bound_ms", "roofline_pct")}
             for (S, d), t in embed["timings"].items()},
-        "card": dev["nvidia_smi"]}]})
+        "card": dev["nvidia_smi"]}, s1]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": torch.cuda.device_count()}})
     return 0

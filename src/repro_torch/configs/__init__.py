@@ -13,6 +13,7 @@ from repro_torch.configs.qwen3_17b import CONFIG as qwen3_17b
 from repro_torch.configs.whisper_small import CONFIG as whisper_small
 from repro_torch.configs.llava_next_34b import CONFIG as llava_next_34b
 from repro_torch.configs.jamba_v01_52b import CONFIG as jamba_v01_52b
+from repro_torch.configs.jamba2_3b import CONFIG as jamba2_3b
 from repro_torch.configs.costmodel import (COSTMODEL_SMALL, COSTMODEL_BASE,
                                            COSTMODEL_100M)
 
@@ -22,11 +23,17 @@ ARCHS = {c.name: c for c in [
     jamba_v01_52b,
 ]}
 
+# archs the port runs that the reference package does not have; ARCHS
+# stays the reference's list
+PORT_ARCHS = {c.name: c for c in [jamba2_3b]}
+
 
 def get_arch(name: str) -> ArchConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
-    return ARCHS[name]
+    found = ARCHS.get(name) or PORT_ARCHS.get(name)
+    if found is None:
+        raise KeyError(f"unknown arch {name!r}; available: "
+                       f"{sorted(ARCHS) + sorted(PORT_ARCHS)}")
+    return found
 
 
 __all__ = ["ArchConfig", "MoEConfig", "HybridConfig", "XLSTMConfig",

@@ -29,6 +29,9 @@ class HybridConfig:
     d_state: int = 16         # mamba SSM state dim
     d_conv: int = 4           # mamba conv kernel
     expand: int = 2           # mamba inner expansion
+    # RMSNorms on the mixer's dt (dt_rank), B and C (d_state) after
+    # x_proj, as Jamba's mixer has them (a port-only field)
+    inner_norms: bool = False
 
 
 @dataclass(frozen=True)
@@ -55,6 +58,8 @@ class ArchConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    rope: bool = True         # False: attention with no positional
+                              # encoding, as Jamba's (a port-only field)
     # MoE / hybrid / xlstm sub-configs
     moe: Optional[MoEConfig] = None
     hybrid: Optional[HybridConfig] = None

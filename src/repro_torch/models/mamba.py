@@ -8,6 +8,14 @@ products and sums only: the cumulative product of ``exp(dt * A)``
 divided out would underflow to 0 and give inf or NaN. Its combine order
 is not the reference's, so the two agree to float32 rounding. Decode is
 the O(1) recurrent update.
+
+On a CUDA card, with plain tensors, training and prefill run the scan
+as one hand-written kernel instead
+(:func:`repro_torch.kernels.selective_scan.selective_scan`, forward and
+backward); the chunked scan here stays for the CPU and DTensors, and is
+the kernel's oracle. With ``cfg.hybrid.inner_norms`` the mixer
+normalises dt, B and C after ``x_proj`` (Jamba's ``dt_layernorm``,
+``b_layernorm``, ``c_layernorm``).
 """
 from __future__ import annotations
 
@@ -17,7 +25,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _init
+from repro_torch.kernels import selective_scan as SS
+from repro_torch.models.layers import _init, rms_norm
 from repro_torch.runtime import sharding as SH
 
 MAMBA_CHUNK = 256
@@ -29,7 +38,7 @@ def mamba_init(generator, cfg) -> Dict[str, Any]:
     di = h.expand * d
     dt_rank = max(d // 16, 1)
     lo, hi = math.log(1e-3), math.log(1e-1)
-    return {
+    p = {
         "in_proj": _init(generator, (d, 2 * di)),
         "conv_w": _init(generator, (h.d_conv, di), scale=0.5),
         "conv_b": torch.zeros((di,)),
@@ -42,10 +51,15 @@ def mamba_init(generator, cfg) -> Dict[str, Any]:
         "D": torch.ones((di,)),
         "out_proj": _init(generator, (di, d)),
     }
+    if h.inner_norms:
+        p.update(dt_norm=torch.ones((dt_rank,)),
+                 b_norm=torch.ones((h.d_state,)),
+                 c_norm=torch.ones((h.d_state,)))
+    return p
 
 
 def mamba_axes(cfg):
-    return {
+    a = {
         "in_proj": ("embed", "ffn"),
         "conv_w": (None, "ffn"),
         "conv_b": ("ffn",),
@@ -56,6 +70,9 @@ def mamba_axes(cfg):
         "D": ("ffn",),
         "out_proj": ("ffn", "embed"),
     }
+    if cfg.hybrid.inner_norms:
+        a.update(dt_norm=(None,), b_norm=(None,), c_norm=(None,))
+    return a
 
 
 def _causal_conv(x, w, b, state: Optional[torch.Tensor] = None):
@@ -81,10 +98,19 @@ def _ssm_params(p, x, cfg, cdt):
     proj = SH.settle(x @ p["x_proj"].to(cdt))
     dt_in, Bm, Cm = torch.split(proj, [dt_rank, h.d_state, h.d_state],
                                 dim=-1)
+    if h.inner_norms:
+        dt_in = rms_norm(dt_in, p["dt_norm"], cfg.norm_eps)
+        Bm = rms_norm(Bm, p["b_norm"], cfg.norm_eps)
+        Cm = rms_norm(Cm, p["c_norm"], cfg.norm_eps)
     dt = F.softplus(SH.settle(dt_in @ p["dt_proj"].to(cdt)).float()
                     + p["dt_bias"])
     A = -torch.exp(p["A_log"])  # (di, N)
     return dt, Bm.float(), Cm.float(), A
+
+
+def _kernel_scan(*ts) -> bool:
+    """The scan kernel runs on plain (not DTensor) CUDA tensors."""
+    return all(not isinstance(t, SH.DTensor) and t.is_cuda for t in ts)
 
 
 def _scan(a, b):
@@ -115,7 +141,6 @@ def mamba_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16,
         # the params' split, gathering their batch whole in the backward
         p = {k: v if k in ("in_proj", "out_proj") else
              rules.constrain(v, *(None,) * v.ndim) for k, v in p.items()}
-    S = x.shape[1]
     xc = x.to(cdt)
     xz = xc @ p["in_proj"].to(cdt)
     xin, z = torch.chunk(xz, 2, dim=-1)
@@ -143,27 +168,42 @@ def mamba_apply(p, x, cfg, *, rules=None, cdt=torch.bfloat16,
     xin, _ = _causal_conv(xin, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
     xin = F.silu(xin)
     dt, Bm, Cm, A = _ssm_params(p, xin, cfg, cdt)
-    x32 = xin.float()
+    y = selective_scan(xin.float(), dt, A, Bm, Cm, p["D"])
+    y = y.to(cdt) * F.silu(z)
+    if rules is not None:
+        y = rules.constrain(y, "batch", None, "ffn")
+    out = y @ p["out_proj"].to(cdt)
+    return out, None
 
-    chunk = min(MAMBA_CHUNK, S)
+
+def selective_scan(x, dt, A, Bm, Cm, D):
+    """``chunked_scan(...) + D * x``, float32: on plain CUDA tensors as
+    the hand-written kernel, else (the CPU, DTensors) as the chunked
+    scan."""
+    if _kernel_scan(x, dt, A, Bm, Cm, D):
+        return SS.selective_scan(x, dt, A, Bm, Cm, D)
+    return chunked_scan(x, dt, A, Bm, Cm) + D * x
+
+
+def chunked_scan(x, dt, A, Bm, Cm, chunk: int = MAMBA_CHUNK):
+    """y_t = sum_n C_tn s_tn for s_t = exp(dt_t A) s_{t-1} + dt_t B_t x_t
+    from s = 0, all float32: x, dt (B, S, di), A (di, N), Bm, Cm (B, S,
+    N) -> (B, S, di). A loop over sequence chunks with a log-depth scan
+    inside each, so no (B, S, di, N) tensor is built."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
     s0 = None           # the state before the first chunk is zero
     ys = []
     for start in range(0, S, chunk):
         sl = slice(start, start + chunk)
-        xc_, dt_, B_, C_ = x32[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
+        xc_, dt_, B_, C_ = x[:, sl], dt[:, sl], Bm[:, sl], Cm[:, sl]
         dA = torch.exp(dt_[..., None] * A)                     # B,c,di,N
         dBx = dt_[..., None] * B_[:, :, None, :] * xc_[..., None]
         aA, aB = _scan(dA, dBx)
         s = aB if s0 is None else aA * s0[:, None] + aB        # B,c,di,N
         ys.append((s * C_[:, :, None, :]).sum(-1))             # B,c,di
         s0 = s[:, -1]
-    y = torch.cat(ys, dim=1)
-    y = y + p["D"] * x32
-    y = y.to(cdt) * F.silu(z)
-    if rules is not None:
-        y = rules.constrain(y, "batch", None, "ffn")
-    out = y @ p["out_proj"].to(cdt)
-    return out, None
+    return torch.cat(ys, dim=1)
 
 
 def mamba_init_state(cfg, batch, dtype=torch.float32):

@@ -5,7 +5,8 @@
 
 * dense | moe | vlm : token-embedding decoder LM, uniform stacked layers.
 * hybrid (jamba)    : stacked periods of 1 attention + (period-1) mamba
-                      layers, MoE on every ``moe_every``-th layer.
+                      layers, MoE on every ``moe_every``-th layer (every
+                      FFN dense without ``cfg.moe``).
 * ssm (xlstm)       : stacked (mLSTM, sLSTM) block pairs.
 * audio (whisper)   : enc-dec; encoder over stubbed frame embeddings.
 
@@ -13,7 +14,7 @@ Layer stacks keep the reference's leading "stack" axis, one tensor a
 leaf, so a param tree carries across the two packages key for key. A
 forward loops over the stack's index (each leaf unbound once, so the
 backward stacks the layers' gradients in one copy), and with ``remat``
-recomputes each layer in the backward
+recomputes each layer (a hybrid period's each slot) in the backward
 (``torch.utils.checkpoint.checkpoint``, non-reentrant). Decoding runs
 without autograd and updates the cache it is given in place.
 """
@@ -144,67 +145,97 @@ def _layer_apply(p, h, cfg, *, positions, rules, cdt, cache=None,
 
 
 # =========================================================== hybrid (jamba)
+def _moe_slot(cfg, slot: int) -> bool:
+    """Whether a period's FFN slot is an MoE (every FFN is dense where
+    ``cfg.moe`` is None)."""
+    return cfg.moe is not None and slot % cfg.moe.moe_every == 0
+
+
 def _period_init(generator, cfg):
     hb = cfg.hybrid
     n_mamba = hb.period - 1
-    n_moe = sum(1 for s in range(hb.period) if s % cfg.moe.moe_every == 0)
+    n_moe = sum(_moe_slot(cfg, s) for s in range(hb.period))
     n_dense = hb.period - n_moe
-    return {
-        "attn": L.attention_init(generator, cfg),
-        "mamba": _stack_init(n_mamba, lambda: MB.mamba_init(generator, cfg)),
-        "moe": _stack_init(n_moe, lambda: M.moe_init(generator, cfg)),
-        "ffn": _stack_init(n_dense, lambda: L.ffn_init(
-            generator, cfg.d_model, cfg.d_ff)),
-        "ln1": torch.ones((hb.period, cfg.d_model)),
-        "ln2": torch.ones((hb.period, cfg.d_model)),
-    }
+    p = {"attn": L.attention_init(generator, cfg),
+         "mamba": _stack_init(n_mamba, lambda: MB.mamba_init(generator, cfg))}
+    if n_moe:
+        p["moe"] = _stack_init(n_moe, lambda: M.moe_init(generator, cfg))
+    p["ffn"] = _stack_init(n_dense, lambda: L.ffn_init(
+        generator, cfg.d_model, cfg.d_ff))
+    p["ln1"] = torch.ones((hb.period, cfg.d_model))
+    p["ln2"] = torch.ones((hb.period, cfg.d_model))
+    return p
 
 
 def _period_axes(cfg):
-    return {
-        "attn": L.attention_axes(cfg),
-        "mamba": _stack_axes(MB.mamba_axes(cfg)),
-        "moe": _stack_axes(M.moe_axes(cfg)),
-        "ffn": _stack_axes(L.ffn_axes()),
-        "ln1": (None, None), "ln2": (None, None),
-    }
+    a = {"attn": L.attention_axes(cfg),
+         "mamba": _stack_axes(MB.mamba_axes(cfg)),
+         "ffn": _stack_axes(L.ffn_axes()),
+         "ln1": (None, None), "ln2": (None, None)}
+    if cfg.moe is not None:
+        a["moe"] = _stack_axes(M.moe_axes(cfg))
+    return a
+
+
+def _slot_apply(h, sp, cfg, *, attn, moe, positions, rules, cdt,
+                cache=None, cache_index=None):
+    """One slot of a period: its mixer (attention or mamba) and its FFN
+    (MoE or dense), each behind its RMSNorm. ``sp`` holds the slot's
+    ``ln1``, ``ln2``, ``mix`` and ``ffn`` params. With ``cache`` (decode)
+    the mixer's KV cache or mamba state is updated in place. Returns (h,
+    aux)."""
+    mix_in = L.rms_norm(h, sp["ln1"], cfg.norm_eps)
+    if attn:
+        a, _ = L.attention_apply(sp["mix"], mix_in, cfg, positions=positions,
+                                 rules=rules, cdt=cdt, cache=cache,
+                                 cache_index=cache_index)
+    else:
+        a, new_st = MB.mamba_apply(sp["mix"], mix_in, cfg, rules=rules,
+                                   cdt=cdt, state=cache)
+        if cache is not None:
+            _store(cache, new_st)
+    h = h + a.to(h.dtype)
+    ffn_in = L.rms_norm(h, sp["ln2"], cfg.norm_eps)
+    if moe:
+        f, aux = M.moe_apply(sp["ffn"], ffn_in, cfg, rules=rules, cdt=cdt)
+    else:
+        f = L.ffn_apply(sp["ffn"], ffn_in, rules=rules, cdt=cdt)
+        aux = torch.zeros((), device=h.device)
+    return h + f.to(h.dtype), aux
 
 
 def _period_apply(p, h, cfg, *, positions, rules, cdt, caches=None,
-                  cache_index=None):
+                  cache_index=None, remat=False):
     """One period: slots 0..period-1; attention at hb.attn_index. With
     ``caches`` (decode), the attention's KV cache and each mamba layer's
-    state are updated in place."""
+    state are updated in place. With ``remat`` each slot is recomputed
+    on its own in the backward, so one slot's activations are held at a
+    time."""
     hb = cfg.hybrid
-    mamba_p, moe_p, ffn_p = (_unstack(p[k]) for k in ("mamba", "moe", "ffn"))
+    mamba_p, ffn_p = _unstack(p["mamba"]), _unstack(p["ffn"])
+    moe_p = _unstack(p["moe"]) if "moe" in p else []
     mamba_st = _unstack(caches["mamba"]) if caches is not None else None
     mamba_i = moe_i = ffn_i = 0
     aux_total = torch.zeros((), device=h.device)
     for slot in range(hb.period):
-        mix_in = L.rms_norm(h, p["ln1"][slot], cfg.norm_eps)
-        if slot == hb.attn_index:
-            cache = caches["attn"] if caches is not None else None
-            a, _ = L.attention_apply(
-                p["attn"], mix_in, cfg, positions=positions, rules=rules,
-                cdt=cdt, cache=cache, cache_index=cache_index)
+        attn, moe = slot == hb.attn_index, _moe_slot(cfg, slot)
+        sp = {"ln1": p["ln1"][slot], "ln2": p["ln2"][slot],
+              "mix": p["attn"] if attn else mamba_p[mamba_i],
+              "ffn": moe_p[moe_i] if moe else ffn_p[ffn_i]}
+        cache = None
+        if caches is not None:
+            cache = caches["attn"] if attn else mamba_st[mamba_i]
+        body = functools.partial(_slot_apply, cfg=cfg, attn=attn, moe=moe,
+                                 positions=positions, rules=rules, cdt=cdt,
+                                 cache=cache, cache_index=cache_index)
+        if remat:
+            h, aux = checkpoint(body, h, sp, use_reentrant=False)
         else:
-            st = mamba_st[mamba_i] if caches is not None else None
-            a, new_st = MB.mamba_apply(mamba_p[mamba_i], mix_in, cfg,
-                                       rules=rules, cdt=cdt, state=st)
-            if caches is not None:
-                _store(st, new_st)
-            mamba_i += 1
-        h = h + a.to(h.dtype)
-        ffn_in = L.rms_norm(h, p["ln2"][slot], cfg.norm_eps)
-        if slot % cfg.moe.moe_every == 0:
-            f, aux = M.moe_apply(moe_p[moe_i], ffn_in, cfg, rules=rules,
-                                 cdt=cdt)
-            aux_total = aux_total + aux
-            moe_i += 1
-        else:
-            f = L.ffn_apply(ffn_p[ffn_i], ffn_in, rules=rules, cdt=cdt)
-            ffn_i += 1
-        h = h + f.to(h.dtype)
+            h, aux = body(h, sp)
+        aux_total = aux_total + aux
+        mamba_i += not attn
+        moe_i += moe
+        ffn_i += not moe
     return h, caches, aux_total
 
 
@@ -402,10 +433,11 @@ def forward(params, cfg, batch, *, rules=None, cdt=torch.bfloat16,
 
         def body(hh, pp):
             out, _, aux_p = _period_apply(pp, hh, cfg, positions=positions,
-                                          rules=rules, cdt=cdt)
+                                          rules=rules, cdt=cdt, remat=remat)
             return out, aux_p
 
-        h, aux = _run_stack(body, h, params["periods"], remat)
+        # each slot of a period is recomputed on its own (in the body)
+        h, aux = _run_stack(body, h, params["periods"], remat=False)
     else:
         h = _embed_tokens(params, cfg, batch, cdt, rules)
 

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import model as MODEL
+from repro_torch.obs import trace as OBS
 from repro_torch.optim import adamw
 from repro_torch.params import tree_flatten, tree_unflatten
 from repro_torch.runtime import sharding as SH
@@ -105,25 +106,39 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     grad_transform: optional fn(grads) -> grads (e.g. compression hook)
     applied before the optimizer. A param the loss does not reach gets a
     zero gradient.
+
+    Each step records spans into :func:`repro_torch.obs.trace.
+    default_tracer` (1 in ``TRAIN_SAMPLE_EVERY`` steps, and every step
+    while a torch profiler records, tagged ``profiled``): a root
+    ``lm.step`` over ``lm.loss_grad`` (the loss and ``autograd.grad``)
+    and ``lm.optimizer`` (``grad_transform`` and AdamW). They are host
+    times, never profiler ranges.
     """
     loss_fn = make_loss_fn(cfg, rules=rules, remat=remat)
+    tr = OBS.default_tracer()
 
     def train_step(params, opt_state, batch):
-        # the backward, which recomputes remat'd layers, runs inside too
-        with SH.step_scope(rules):
-            return _train_step(params, opt_state, batch)
+        profiled = OBS.profiling()
+        with tr.span("lm.step", tr.sample(force=profiled),
+                     {"profiled": profiled}) as sp:
+            # the backward, which recomputes remat'd layers, runs inside
+            with SH.step_scope(rules):
+                return _train_step(params, opt_state, batch,
+                                   sp.ctx if sp is not None else None)
 
-    def _train_step(params, opt_state, batch):
-        batch = SH.place_batch(rules, batch)
-        flat = tree_flatten(params)
-        live = [p.detach().requires_grad_() for p in flat]
-        total, inner = loss_fn(tree_unflatten(params, live), batch)
-        grads = torch.autograd.grad(total, live, materialize_grads=True)
-        grads = tree_unflatten(params, SH.like(grads, flat))
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        params, opt_state, opt_metrics = adamw.apply_updates(
-            params, grads, opt_state, opt_cfg)
+    def _train_step(params, opt_state, batch, ctx):
+        with tr.span("lm.loss_grad", ctx):
+            batch = SH.place_batch(rules, batch)
+            flat = tree_flatten(params)
+            live = [p.detach().requires_grad_() for p in flat]
+            total, inner = loss_fn(tree_unflatten(params, live), batch)
+            grads = torch.autograd.grad(total, live, materialize_grads=True)
+        with tr.span("lm.optimizer", ctx):
+            grads = tree_unflatten(params, SH.like(grads, flat))
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            params, opt_state, opt_metrics = adamw.apply_updates(
+                params, grads, opt_state, opt_cfg)
         metrics = {"total_loss": total.detach(),
                    **{k: v.detach() for k, v in inner.items()},
                    **opt_metrics}

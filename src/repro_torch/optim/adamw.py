@@ -25,6 +25,10 @@ import torch
 
 from repro_torch.params import tree_flatten, tree_map, tree_unflatten
 
+# float32 bytes of the leaves updated together: bounds the update's
+# temporaries (at 1.6 B parameters a whole-tree set is 6.4 GB)
+GROUP_BYTES = 1 << 30
+
 
 @dataclass(frozen=True)
 class AdamWConfig:
@@ -95,38 +99,67 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_unflatten(grads, flat), norm
 
 
+def _groups(leaves, limit: int):
+    """Runs of consecutive leaf indices whose float32 bytes stay within
+    ``limit`` together (a larger leaf alone)."""
+    out, size = [[]], 0
+    for i, x in enumerate(leaves):
+        n = 4 * x.numel()
+        if out[-1] and size + n > limit:
+            out.append([])
+            size = 0
+        out[-1].append(i)
+        size += n
+    return out
+
+
 def apply_updates(params, grads, state, cfg: AdamWConfig):
     """Returns ``(new_params, new_state, metrics)``; the inputs are not
-    modified."""
+    modified.
+
+    The leaves are updated a group at a time, each group at most
+    ``GROUP_BYTES`` of float32, so the update's temporaries (the clipped
+    gradients, the bias-corrected moments, the step) hold one group's
+    size, not the whole tree's; each leaf's arithmetic is the same, and a
+    tree within one group takes the same launches."""
     count = state["count"] + 1
     flat_g = [g.float() for g in tree_flatten(grads)]
-    if cfg.clip_norm is not None:
-        flat_g, gnorm = _clip(flat_g, cfg.clip_norm)
-    else:
-        gnorm = _norm(flat_g)
+    gnorm = _norm(flat_g)
+    scale = None if cfg.clip_norm is None else torch.clamp(
+        cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule_lr(cfg, count)
     step = count.to(torch.float32)
     b1c = 1 - torch.pow(cfg.b1, step)
     b2c = 1 - torch.pow(cfg.b2, step)
 
     flat_p = tree_flatten(params)
-    m = torch._foreach_add(torch._foreach_mul(tree_flatten(state["m"]),
-                                              cfg.b1),
-                           torch._foreach_mul(flat_g, 1 - cfg.b1))
-    v = torch._foreach_add(torch._foreach_mul(tree_flatten(state["v"]),
-                                              cfg.b2),
-                           torch._foreach_mul(torch._foreach_mul(
-                               flat_g, flat_g), 1 - cfg.b2))
-    mhat = torch._foreach_div(m, b1c)
-    vhat = torch._foreach_div(v, b2c)
-    steps = torch._foreach_div(
-        mhat, torch._foreach_add(torch._foreach_sqrt(vhat), cfg.eps))
-    new_p = []
-    for p, s in zip(flat_p, steps):
-        p32 = p.float()
-        if cfg.weight_decay and p.ndim >= 2:   # decay matrices only
-            s = s + cfg.weight_decay * p32
-        new_p.append((p32 - lr * s).to(p.dtype))
+    old_m, old_v = tree_flatten(state["m"]), tree_flatten(state["v"])
+    new_p, m, v = [], [], []
+    for idx in _groups(flat_p, GROUP_BYTES):
+        g = [flat_g[i] for i in idx]
+        if scale is not None:
+            g = torch._foreach_mul(g, scale)
+        gm = torch._foreach_add(
+            torch._foreach_mul([old_m[i] for i in idx], cfg.b1),
+            torch._foreach_mul(g, 1 - cfg.b1))
+        gv = torch._foreach_add(
+            torch._foreach_mul([old_v[i] for i in idx], cfg.b2),
+            torch._foreach_mul(torch._foreach_mul(g, g), 1 - cfg.b2))
+        del g
+        mhat = torch._foreach_div(gm, b1c)
+        vhat = torch._foreach_div(gv, b2c)
+        steps = torch._foreach_div(
+            mhat, torch._foreach_add(torch._foreach_sqrt(vhat), cfg.eps))
+        del mhat, vhat
+        for i, s in zip(idx, steps):
+            p = flat_p[i]
+            p32 = p.float()
+            if cfg.weight_decay and p.ndim >= 2:   # decay matrices only
+                s = s + cfg.weight_decay * p32
+            new_p.append((p32 - lr * s).to(p.dtype))
+        del steps
+        m += gm
+        v += gv
     new_state = {"m": tree_unflatten(state["m"], m),
                  "v": tree_unflatten(state["v"], v),
                  "count": count}

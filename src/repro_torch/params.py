@@ -94,7 +94,12 @@ def tree_unflatten(like, leaves):
         if isinstance(node, (list, tuple)):
             return type(node)(build(v) for v in node)
         return next(it)
-    return build(like)
+    try:
+        return build(like)
+    finally:
+        # build refers to itself, a cycle that would hold the leaves
+        # (a whole tree of gradients in a train step) until the GC ran
+        del build
 
 
 def from_numpy(tree, device, dtype: Optional[torch.dtype] = None):

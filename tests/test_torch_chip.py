@@ -1343,3 +1343,158 @@ def test_lm_rules_step_on_one_rank_nccl_mesh(cuda):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# ------------------------------------------- the selective scan (S1, jamba)
+def _scan_case(device, B, L, D, N, seed=0):
+    """x, dt (softplus of N(-3, 1): ~0.05), A (-exp(log(1..N) + noise)),
+    B, C, D (1 + noise) and an output gradient, float32 on ``device``."""
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+    A = -torch.exp(torch.log(torch.arange(1, N + 1.0)).repeat(D, 1)
+                   + 0.1 * r(D, N))
+    ts = (r(B, L, D), torch.nn.functional.softplus(r(B, L, D) - 3), A,
+          r(B, L, N), r(B, L, N), 1 + 0.1 * r(D), r(B, L, D))
+    return [t.to(device) for t in ts]
+
+
+def _scan_and_grads(scan, x, dt, A, Bm, Cm, D, dy):
+    """(y, dx, ddt, dA, dB, dC, dD) of ``scan(x, dt, A, B, C, D)``."""
+    ts = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    y = scan(*ts)
+    return (y.detach(),) + torch.autograd.grad(y, ts, dy)
+
+
+def _plain_scan(x, dt, A, Bm, Cm, D):
+    from repro_torch.models import mamba as MB
+    return MB.chunked_scan(x, dt, A, Bm, Cm) + D * x
+
+
+def _plain_by_channels(case, width=256):
+    """The plain scan's outputs and gradients a block of channels at a
+    time (channels are independent but for dB and dC, which sum over
+    them): the plain scan's autograd holds ~30 (B, 256, channels, N)
+    tensors a chunk, too many at the cell's size for all channels."""
+    x, dt, A, Bm, Cm, D, dy = case
+    outs = [torch.empty_like(x), torch.empty_like(x), torch.empty_like(x),
+            torch.empty_like(A), torch.zeros_like(Bm), torch.zeros_like(Cm),
+            torch.empty_like(D)]
+    for c0 in range(0, x.shape[2], width):
+        sl = slice(c0, c0 + width)
+        got = _scan_and_grads(_plain_scan, x[..., sl], dt[..., sl], A[sl],
+                              Bm, Cm, D[sl], dy[..., sl])
+        for i in (0, 1, 2):
+            outs[i][..., sl] = got[i]
+        outs[3][sl], outs[6][sl] = got[3], got[6]
+        outs[4] += got[4]
+        outs[5] += got[5]
+    return outs
+
+
+SCAN_NAMES = ("y", "dx", "ddt", "dA", "dB", "dC", "dD")
+# float32 both ways; the kernel sums in other orders (a sequential state
+# against the chunked log-depth scan; dA and dD over rows and steps, dB
+# and dC over channels, each in one fixed order) and takes expf: each
+# output within 1e-4 of its largest entry
+SCAN_TOL = 1e-4
+
+
+def _scan_gaps(got, want):
+    return {n: float((a - b).abs().max() / b.abs().max())
+            for n, a, b in zip(SCAN_NAMES, got, want)}
+
+
+@pytest.mark.parametrize("B,L,D,N", [
+    (2, 100, 96, 16),       # L not a multiple of the 16-step chunk
+    (1, 1000, 200, 16),     # one row; the last channel block part-filled
+    (3, 257, 70, 8),        # 8 states (the reduced hybrids'), 2 lanes
+    (2, 33, 130, 8),        # 3 channel blocks, the last of 2 channels
+])
+def test_selective_scan_matches_plain(cuda, B, L, D, N):
+    from repro_torch.kernels import selective_scan as SS
+    case = _scan_case(cuda, B, L, D, N)
+    before = SS.selective_scan.launches
+    got = _scan_and_grads(SS.selective_scan, *case)
+    assert SS.selective_scan.launches - before == 2   # forward, backward
+    gaps = _scan_gaps(got, _scan_and_grads(_plain_scan, *case))
+    assert max(gaps.values()) <= SCAN_TOL, gaps
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_selective_scan_at_the_cells_shapes(cuda, B):
+    """jamba2-3b-train-s4096's scan (S 4,096, 5,120 channels, 16 states)
+    against the plain scan a block of channels at a time, at the cell's
+    B=8 and at B=1; and two launches give the same bits."""
+    from repro_torch.kernels import selective_scan as SS
+    case = _scan_case(cuda, B, 4096, 5120, 16, seed=B)
+    got = _scan_and_grads(SS.selective_scan, *case)
+    again = _scan_and_grads(SS.selective_scan, *case)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    gaps = _scan_gaps(got, _plain_by_channels(case))
+    print(f"scan B={B} gaps {gaps}")
+    assert max(gaps.values()) <= SCAN_TOL, gaps
+
+
+def _ms(fn, n=5):
+    """Median card milliseconds of ``fn()`` over ``n`` timed runs after
+    one warm-up."""
+    fn()
+    times = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def test_selective_scan_ten_times_the_plain_scan(cuda):
+    """Forward and backward where the plain scan still fits whole (2 rows
+    of 1,024 steps, 5,120 channels, 16 states): the kernel at least 10x
+    faster, timed in turns."""
+    from repro_torch.kernels import selective_scan as SS
+    case = _scan_case(cuda, 2, 1024, 5120, 16)
+    kernel = _ms(lambda: _scan_and_grads(SS.selective_scan, *case))
+    plain = _ms(lambda: _scan_and_grads(_plain_scan, *case))
+    print(f"scan fwd+bwd at (2, 1024, 5120, 16): kernel {kernel:.3f} ms, "
+          f"plain {plain:.3f} ms")
+    assert plain >= 10 * kernel, (kernel, plain)
+
+
+def test_jamba2_train_step_against_the_bench_reference(cuda):
+    """jamba2-3b (one 14-layer period at the published widths) through
+    models/steps.make_train_step at B=1, S=1,024 on the card, three
+    steps, held to bench/reference/jamba.py as the benchmark's check
+    holds the cell (its numbers against the cell's limits), with the
+    scan kernel on every Mamba layer."""
+    import json
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from bench.drivers import lm_train as LT
+    from bench.harness import model as M
+    from bench.harness import runner
+    from bench.harness import spec as SP
+    from repro_torch.kernels import selective_scan as SS
+    bench = SP.load_benchmark(root)
+    cell = SP.workload(bench, "jamba2-3b-train-s4096")
+    cfg = SP.config(bench, cell["config"], root)
+    tr = dict(SP.traffic(cell["traffic"]), batch_size=1, seq_len=1024)
+    run = runner.Run(bench, cell, cfg, tr, 2 ** 40 + 3, 1.0, False, cuda,
+                     0.0)
+    run.params = M.seeded_params(cfg, run.seed, cuda)
+    driver = LT.Driver()
+    before = SS.selective_scan.launches
+    st = driver.setup(run)
+    assert SS.selective_scan.launches - before == 3 * 39
+    ans = driver.answers(run, st, None)
+    driver.stop(st)
+    got = LT.lm_numbers(run, ans)
+    print("jamba2-3b B=1 S=1024 " + json.dumps(got))
+    lim = cfg["limits"]["lmtrain"]
+    assert all(got[k] <= v for k, v in lim.items()), (got, lim)

@@ -52,11 +52,14 @@ def test_port_imports_with_jax_and_reference_blocked():
                           capture_output=True, text=True, env=env,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    # every module imported (81): the serving tier, obs, the launch CLIs,
-    # the architecture configs, the StableHLO lowering, the LLM
-    # substrate and the mesh tooling
+    # every module imported (84): the serving tier, obs, the launch CLIs,
+    # the architecture configs (jamba2-3b's, the port's own, among
+    # them), the StableHLO lowering, the LLM substrate, the mesh tooling
+    # and the kernels (the selective scan's among them)
     names = proc.stdout.split()
-    assert len(names) >= 81
+    assert len(names) >= 84
+    assert {"repro_torch.configs.jamba2_3b",
+            "repro_torch.kernels.selective_scan"} <= set(names)
     assert {f"repro_torch.models.{m}" for m in (
         "layers", "moe", "mamba", "xlstm", "model", "steps")} <= set(names)
     assert {"repro_torch.runtime.sharding", "repro_torch.launch.mesh",

@@ -2,6 +2,8 @@
 AdamW with its schedules and clipping, int8 error-feedback compression,
 and the deterministic, resumable Loader. Inputs are seeded with numpy;
 each test states its tolerance."""
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -84,6 +86,30 @@ def test_adamw_matches_reference(schedule, clip):
     # the input tree is not modified, and dict order survives
     assert list(tp) == list(params)
     assert list(tp["heads"]) == ["z", "a"]
+
+
+@pytest.mark.parametrize("limit", [4, 40, 1 << 30])
+def test_adamw_grouped_update_same_bits(limit):
+    """Updated a bounded group of leaves at a time (a leaf a group, a
+    few, all), AdamW gives the bits of the whole-tree update, three steps
+    with clipping active."""
+    rng = np.random.default_rng(1)
+    params = P.from_numpy(mixed_tree(rng), "cpu")
+    grads = [P.from_numpy(mixed_tree(rng, 5.0), "cpu") for _ in range(3)]
+    cfg = T_ADAMW.AdamWConfig(lr=1e-2, weight_decay=0.1, warmup_steps=2,
+                              total_steps=6)
+    out = {}
+    for lim in (1 << 30, limit):
+        with mock.patch.object(T_ADAMW, "GROUP_BYTES", lim):
+            p, s = params, T_ADAMW.init_state(params)
+            for g in grads:
+                p, s, _ = T_ADAMW.apply_updates(p, g, s, cfg)
+        out[lim] = P.tree_flatten(p) + P.tree_flatten(s["m"]) + \
+            P.tree_flatten(s["v"])
+    assert len(T_ADAMW._groups(P.tree_flatten(params), limit)) == \
+        {4: 9, 40: 5, 1 << 30: 1}[limit]
+    for a, b in zip(out[1 << 30], out[limit]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("schedule", ["cosine", "linear", "constant"])
